@@ -5,8 +5,8 @@ the port runs, so one set of keyword arguments builds the same model in
 both packages. Fields that only selected TPU formulations of the same
 function (stem packing, router chain layouts, stage-0 hoisting, remat,
 scan unroll) are gone, and so are fields of variants the port does not
-have yet (bf16 compute, quantization, the OpenLane heads, training): an
-unknown keyword fails when the config is built.
+have yet (bf16 compute, the OpenLane heads, training): an unknown keyword
+fails when the config is built.
 """
 
 from __future__ import annotations
@@ -14,6 +14,16 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+QUANTIZE_MODES = ("none", "int8", "w8")
+
+
+def check_quantize(mode: str) -> str:
+    """``mode`` if it is one of :data:`QUANTIZE_MODES`, else ValueError."""
+    if mode not in QUANTIZE_MODES:
+        raise ValueError("quantize must be one of 'none', 'int8', 'w8'; "
+                         "got %r" % (mode,))
+    return mode
 
 
 @dataclass(frozen=True)
@@ -132,11 +142,18 @@ class ModelConfig:
     test: TestParams = field(default_factory=TestParams)
     max_lanes: int = 8
     routing: str = "hard"  # "hard" (VIL) | "soft" (OL)
+    # inference-only quantization of the DynamicConv generator chains
+    # (ops/quant.py): "w8" = int8 weights dequantized into a bf16 product
+    # (the w8 matmul kernel on the card), "int8" = int8 weights and
+    # activations with int32 accumulation. Compute stays float32 outside
+    # the chains' products.
+    quantize: str = "none"
 
     def __post_init__(self):
         if self.routing not in ("hard", "soft"):
             raise ValueError(f"routing must be 'hard' or 'soft', got "
                              f"{self.routing!r}")
+        check_quantize(self.quantize)
 
     @property
     def n_offsets(self) -> int:

@@ -14,16 +14,29 @@ outside the frame loop): on VIL the first generator (64 -> 1024 -> 8192)
 and the output MLP (2304 -> 384 -> 64) collapse; the second generator
 (4608 -> 1024 -> 8192) stays factored. The second generated weight is in
 the natural d-major order (the JAX package's c-major permutation is a
-layout choice of the TPU).
+layout choice of the TPU; a column permutation commutes with per-column
+quantization, so it is the same function in the quantized modes too).
+
+``quantize="w8"`` / ``"int8"`` (inference only, ``ops/quant.py``) turns
+every chain product into an int8 one against kernels quantized per output
+column once per weight set: on VIL four products per stage (gen1
+collapsed, gen2 factored into two, out collapsed). ``"w8"`` runs them
+through the w8 matmul kernel on the card; ``"int8"`` quantizes the
+activations per row and accumulates in int32.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Union
 
 import torch
 import torch.nn as nn
+
+from ..config import check_quantize
+from ..ops.quant import (int8_matmul_prequant, int8_weight_layout,
+                         quantize_colwise)
+from ..ops.w8_matmul import w8_matmul
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -37,8 +50,10 @@ def collapse_wins(in_dim: int, hid: int, out_dim: int) -> bool:
 class DynamicConv(nn.Module):
     def __init__(self, feat_size: int = 36, hidden_dim: int = 64,
                  dim_factor: int = 2, param_reduction: int = 8,
-                 out_expand: int = 6, pro_dim: int = 0):
+                 out_expand: int = 6, pro_dim: int = 0,
+                 quantize: str = "none"):
         super().__init__()
+        self.quantize = check_quantize(quantize)
         c = hidden_dim
         d = c * dim_factor
         num_params = c * d
@@ -67,26 +82,48 @@ class DynamicConv(nn.Module):
             ln.bias.data.zero_()
 
     @torch.no_grad()
-    def combine_weights(self) -> Dict[str, Tuple[torch.Tensor, ...]]:
+    def combine_weights(self) -> Dict[str, Union[tuple, Dict]]:
         """Per chain: ``(kernel [in, out], bias)`` of the collapsed pair, or
-        ``(k1, b1, k2, b2)`` of the factored one, kernels as [in, out]."""
+        ``(k1, b1, k2, b2)`` of the factored one, kernels as [in, out].
+        Quantized modules return the pre-quantized form instead:
+        ``{wq, sw, b}`` for a collapsed chain (the f32 product and bias
+        fold, then :func:`quantize_colwise`) and ``{wq1, sw1, b1, wq2, sw2,
+        b2}`` for a factored one; ``"int8"`` stores the int8 kernels
+        column-major (:func:`int8_weight_layout`)."""
         out = {}
         for name in ("gen1", "gen2", "out"):
             la, lb = getattr(self, name + "_a"), getattr(self, name + "_b")
             ka, kb = la.weight.t(), lb.weight.t()
-            if collapse_wins(la.in_features, la.out_features,
-                             lb.out_features):
-                out[name] = (ka @ kb, la.bias @ kb + lb.bias)
+            collapse = collapse_wins(la.in_features, la.out_features,
+                                     lb.out_features)
+            if self.quantize == "none":
+                out[name] = ((ka @ kb, la.bias @ kb + lb.bias) if collapse
+                             else (ka.contiguous(), la.bias, kb.contiguous(),
+                                   lb.bias))
+            elif collapse:
+                wq, sw = quantize_colwise(ka @ kb)
+                out[name] = {"wq": wq, "sw": sw, "b": la.bias @ kb + lb.bias}
             else:
-                out[name] = (ka.contiguous(), la.bias, kb.contiguous(),
-                             lb.bias)
+                wq1, sw1 = quantize_colwise(ka)
+                wq2, sw2 = quantize_colwise(kb)
+                out[name] = {"wq1": wq1, "sw1": sw1, "b1": la.bias,
+                             "wq2": wq2, "sw2": sw2, "b2": lb.bias}
+        if self.quantize == "int8":
+            for entry in out.values():
+                for key in [k for k in entry if k.startswith("wq")]:
+                    entry[key] = int8_weight_layout(entry[key])
         return out
 
-    @staticmethod
-    def _affine(x, pre):
-        if len(pre) == 2:
-            return x @ pre[0] + pre[1]
-        return (x @ pre[0] + pre[1]) @ pre[2] + pre[3]
+    def _affine(self, x, pre):
+        if self.quantize == "none":
+            if len(pre) == 2:
+                return x @ pre[0] + pre[1]
+            return (x @ pre[0] + pre[1]) @ pre[2] + pre[3]
+        mm = w8_matmul if self.quantize == "w8" else int8_matmul_prequant
+        if "wq" in pre:
+            return mm(x, pre["wq"], pre["sw"]) + pre["b"]
+        y = mm(x, pre["wq1"], pre["sw1"]) + pre["b1"]
+        return mm(y, pre["wq2"], pre["sw2"]) + pre["b2"]
 
     def forward(self, pro_feat: torch.Tensor, roi_feat: torch.Tensor,
                 combined=None) -> torch.Tensor:

@@ -125,7 +125,8 @@ class LaneHead(nn.Module):
                         param_reduction=h.dyn_param_reduction,
                         out_expand=h.dyn_out_expand,
                         pro_dim=(h.prior_feat_channels if s == 0
-                                 else h.fc_hidden_dim))
+                                 else h.fc_hidden_dim),
+                        quantize=cfg.quantize)
             for s in range(h.refine_layers))
         self.routers = nn.ModuleList(
             AdaptiveRouter(h.num_priors, h.prior_feat_channels,
@@ -149,8 +150,9 @@ class LaneHead(nn.Module):
             m.reset_parameters(g)
 
     def combine_dynamic(self):
-        """The collapsed DynamicConv weights of every stage (compute once
-        per weight set, outside the frame loop)."""
+        """The collapsed (and, with ``cfg.quantize``, pre-quantized)
+        DynamicConv weights of every stage: compute once per weight set,
+        outside the frame loop."""
         return tuple(dyn.combine_weights() for dyn in self.dyn_heads)
 
     # -- geometry ----------------------------------------------------------

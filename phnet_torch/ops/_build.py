@@ -23,7 +23,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 # kernel library name -> source file under csrc/
-SOURCES = {"lane_nms": "lane_nms.cu", "router_chain": "router_chain.cu"}
+SOURCES = {"lane_nms": "lane_nms.cu", "router_chain": "router_chain.cu",
+           "w8_matmul": "w8_matmul.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

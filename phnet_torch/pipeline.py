@@ -1,0 +1,122 @@
+"""High-level inference pipeline: video in, Lane objects / CULane txt out.
+
+Port of ``phnet_tpu/pipeline.py`` (reference ``testVIL.py:72-130``: whole
+video per call; ``testOLV3.py:95-121``: 16-frame chunks). A video runs in
+chunks of ``chunk`` frames through :class:`phnet_torch.models.PHNet`, the
+last chunk padded by repeating the last frame, with the temporal memory
+carried across chunks (``reset_memory_per_chunk=True`` resets it at every
+chunk, the reference's OL behaviour). The DynamicConv combines (quantized
+when the config asks for it) are built once per weight set.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .config import Config, ModelConfig
+from .device import resolve_device
+from .evaluation.emit import write_gt_txt, write_pred_txt
+from .geometry import Lane, decode_kept_rows
+from .models.phnet import PHNet, init_memory
+
+VIL_WINDOW = 128  # ring frames when the config's window is unbounded
+
+
+class InferencePipeline:
+    """``state_dict``: the port's weights (``phnet_torch.convert``).
+    ``device=None`` runs on the card."""
+
+    def __init__(self, cfg: Config, state_dict: Mapping[str, torch.Tensor],
+                 chunk: int = 16, memory_window: Optional[int] = None,
+                 reset_memory_per_chunk: bool = False, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.mcfg: ModelConfig = cfg.model
+        self.model = PHNet(self.mcfg, device=self.device)
+        self.chunk = chunk
+        self.reset_per_chunk = reset_memory_per_chunk
+        if memory_window is None:
+            memory_window = (self.mcfg.memory.window
+                             if self.mcfg.memory.window > 0 else VIL_WINDOW)
+        self.memory_window = memory_window
+        # original-image decode geometry of the clip being run
+        self._ori_h, self._cut = 0, 0
+        self.update_variables(state_dict)
+
+    def update_variables(self, state_dict: Mapping[str, torch.Tensor]):
+        """Swap the weights and rebuild the DynamicConv combines."""
+        self.model.load_state_dict(state_dict, strict=True)
+        self._dyn = self.model.head.combine_dynamic()
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def run_video(self, frames: np.ndarray) -> Tuple[List[List[Lane]], float]:
+        """frames: [T, H, W, 3] normalized. Returns (per-frame Lane lists,
+        model seconds)."""
+        mcfg = self.mcfg
+        t_total = frames.shape[0]
+        chunk = self.chunk
+        pad = (-t_total) % chunk
+        if pad:
+            frames = np.concatenate([frames, frames[-1:].repeat(pad, 0)], 0)
+        mem = init_memory(mcfg, 1, self.memory_window, self.device)
+
+        kept_all, valid_all = [], []
+        t0 = time.perf_counter()
+        for c in range(0, frames.shape[0], chunk):
+            if self.reset_per_chunk:
+                mem = init_memory(mcfg, 1, self.memory_window, self.device)
+            x = torch.from_numpy(np.ascontiguousarray(
+                frames[None, c:c + chunk], dtype=np.float32)).to(self.device)
+            outs, mem = self.model(x, initial_memory=mem,
+                                   dyn_combined=self._dyn)
+            kept_all.append(outs.kept[:, 0].cpu().numpy())
+            valid_all.append(outs.kept_valid[:, 0].cpu().numpy())
+        model_seconds = time.perf_counter() - t0
+
+        kept_np = np.concatenate(kept_all)[:t_total]  # [T, K, dim]
+        valid_np = np.concatenate(valid_all)[:t_total]
+        per_frame = [decode_kept_rows(kept_np[t][valid_np[t]], mcfg.lane,
+                                      ori_img_h=self._ori_h,
+                                      cut_height=self._cut)
+                     for t in range(t_total)]
+        return per_frame, model_seconds
+
+    # ------------------------------------------------------------------
+    def run_and_emit(self, dataset, pred_dir: str,
+                     anno_dir: Optional[str] = None, fmt: str = "vil",
+                     video_indices: Optional[Sequence[int]] = None,
+                     verbose: bool = False) -> Dict:
+        """Run whole videos and emit CULane txt files; optionally also GT.
+        ``dataset``: indexable (or with ``get_clip``) clip dicts with
+        ``frames``, ``size``, ``name``, ``frame_names``, ``points`` and an
+        optional ``cut``. Returns ``{'fps', 'frames', 'videos'}`` like the
+        reference's per-video fps printout (``testVIL.py:127-130``)."""
+        indices = list(video_indices) if video_indices is not None else list(
+            range(len(dataset)))
+        total_frames, total_seconds = 0, 0.0
+        names = []
+        for i in indices:
+            clip = (dataset.get_clip(i) if hasattr(dataset, "get_clip")
+                    else dataset[i])
+            size = clip["size"]
+            self._ori_h = size[0] if fmt == "vil" else 0
+            self._cut = clip.get("cut", 0)
+            lanes_per_frame, secs = self.run_video(clip["frames"])
+            total_frames += len(lanes_per_frame)
+            total_seconds += secs
+            names.append(clip["name"])
+            for fname, lanes in zip(clip["frame_names"], lanes_per_frame):
+                write_pred_txt(pred_dir, clip["name"], fname, lanes, size, fmt)
+            if anno_dir is not None:
+                for fname, pts in zip(clip["frame_names"], clip["points"]):
+                    write_gt_txt(anno_dir, clip["name"], fname, pts)
+            if verbose:
+                print(f"{clip['name']}: {len(lanes_per_frame)} frames, "
+                      f"{len(lanes_per_frame) / max(secs, 1e-9):.1f} fps")
+        return {"fps": total_frames / max(total_seconds, 1e-9),
+                "frames": total_frames, "videos": names}

@@ -56,8 +56,9 @@ class StreamingServer:
         self._frames_per_stream = np.zeros(max_streams, np.int64)
 
     def update_variables(self, state_dict: Mapping[str, torch.Tensor]):
-        """Swap the served weights and rebuild the collapsed DynamicConv
-        weights, so no tick serves stale combines."""
+        """Swap the served weights and rebuild the collapsed (with
+        ``quantize``, re-quantized) DynamicConv weights, so no tick serves
+        stale combines."""
         self.model.load_state_dict(state_dict, strict=True)
         self._dyn = self.model.head.combine_dynamic()
 

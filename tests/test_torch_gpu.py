@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from phnet_torch.ops import nms as tnms
+from phnet_torch.ops import quant as tq
 from phnet_torch.ops import router_chain as trc
+from phnet_torch.ops import w8_matmul as tw8
 
 pytestmark = pytest.mark.gpu
 
@@ -66,3 +68,43 @@ def test_router_chain_kernel_close_to_plain(cuda, streams):
     assert trc.router_chain.launches == launches + 1
     ref = trc.router_chain_plain(x, taps, bias, lnp, blocks)
     assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (960, 64, 8192),    # gen1, collapsed, 4 streams x 240 anchors
+    (960, 4608, 1024),  # gen2_a, factored
+    (960, 1024, 8192),  # gen2_b, factored
+    (960, 2304, 64),    # out, collapsed
+    (7, 300, 60),       # every axis ragged
+])
+def test_w8_matmul_kernel_close_to_plain(cuda, m, k, n):
+    """Within 1e-5 of max |plain|: the same bf16 operands, f32 sums in
+    another order (TF32 off for the plain version's f32 matmul)."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
+    wq, sw = tq.quantize_colwise(torch.from_numpy(
+        rng.normal(size=(k, n)).astype(np.float32)).to(cuda))
+    launches = tw8.w8_matmul.launches
+    got = tw8.w8_matmul(x, wq, sw)
+    torch.cuda.synchronize()
+    assert tw8.w8_matmul.launches == launches + 1
+    ref = tq.w8_matmul_prequant(x, wq, sw)
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= 1e-5 * scale
+    got_bf16 = tw8.w8_matmul(x.bfloat16(), wq, sw)  # bf16 input, same result
+    assert torch.equal(got_bf16, got)
+
+
+@pytest.mark.parametrize("m,k,n", [(960, 4608, 1024), (7, 300, 60)])
+def test_int8_product_on_card_equals_cpu(cuda, m, k, n):
+    """``torch._int_mm`` on the card (column-major weight; zero-padded
+    where M <= 16 or K, N are not multiples of 8) gives the CPU's exact
+    int8 product and the same rescaled output."""
+    rng = np.random.default_rng(m + k)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    wq, sw = tq.quantize_colwise(torch.from_numpy(
+        rng.normal(size=(k, n)).astype(np.float32)))
+    ref = tq.int8_matmul_prequant(x, wq, sw)
+    got = tq.int8_matmul_prequant(x.to(cuda), tq.int8_weight_layout(
+        wq.to(cuda)), sw.to(cuda))
+    assert torch.equal(got.cpu(), ref)

@@ -11,6 +11,7 @@ import torch
 
 from phnet_torch.config import vil100_config
 from phnet_torch.models import PHNet
+from phnet_torch.pipeline import InferencePipeline
 from phnet_torch.serving import StreamingServer
 
 REPO = Path(__file__).resolve().parents[1]
@@ -35,7 +36,10 @@ def test_port_sources_exist():
     names = {p.relative_to(REPO).as_posix() for p in port_sources()}
     assert {"chip_smoke.py", "phnet_torch/ops/nms.py",
             "phnet_torch/ops/router_chain.py",
+            "phnet_torch/ops/quant.py", "phnet_torch/ops/w8_matmul.py",
+            "phnet_torch/pipeline.py", "phnet_torch/evaluation/emit.py",
             "phnet_torch/serving.py"} <= names
+    assert (REPO / "phnet_torch" / "csrc" / "w8_matmul.cu").is_file()
 
 
 @pytest.mark.parametrize("path", port_sources(),
@@ -53,3 +57,5 @@ def test_entry_points_default_to_the_card():
         StreamingServer(cfg, {})
     with pytest.raises(RuntimeError, match="CUDA"):
         PHNet(cfg.model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferencePipeline(cfg, {})

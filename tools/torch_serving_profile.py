@@ -2,9 +2,12 @@
 """Where a serving tick of the PyTorch port spends its time on the card.
 
     python tools/torch_serving_profile.py [--streams 4] [--ticks 8]
+        [--quantize {none,w8,int8}]
 
 Serves the full-width VIL-100 model (the seeded weights of
-``chip_smoke.py``) through ``phnet_torch.serving.StreamingServer``, warms
+``chip_smoke.py``; ``--quantize`` picks the generator chains' numerics:
+float32, the w8 matmul kernel, or int8 GEMMs) through
+``phnet_torch.serving.StreamingServer``, warms
 up, times ``--ticks`` ticks without the profiler, then traces as many
 with ``torch.profiler`` (CPU + CUDA). Prints the card's name and power
 limit, the tick wall time with and without the profiler (which adds host
@@ -32,6 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("lane_nms", ("lane_nms",)),
     ("router_chain", ("router_chain",)),
+    ("w8_matmul", ("w8_matmul",)),
     ("cudnn conv / batchnorm", ("fprop", "conv", "cudnn", "winograd")),
     ("gemm", ("gemm", "xmma", "cutlass", "cublas")),
     ("reduce / norm / softmax", ("reduce", "norm", "softmax", "welford")),
@@ -53,6 +57,8 @@ def main() -> int:
     ap.add_argument("--streams", type=int, default=4)
     ap.add_argument("--ticks", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--quantize", choices=("none", "w8", "int8"),
+                    default="none")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_serving_profile: no CUDA device", file=sys.stderr)
@@ -69,7 +75,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
-    cfg = vil100_config()
+    cfg = chip_smoke.quantized(vil100_config(), args.quantize)
     server = StreamingServer(cfg, chip_smoke.seeded_state_dict(torch, cfg),
                              max_streams=args.streams)
     sids = [server.attach() for _ in range(args.streams)]
@@ -111,7 +117,8 @@ def main() -> int:
         by_group[group_of(e.name)] += us
     device_ms = sum(by_name.values()) / 1e3
     per_tick = plain_wall_ms / args.ticks
-    print(f"{args.ticks} ticks of {args.streams} streams: wall "
+    print(f"{args.ticks} ticks of {args.streams} streams, quantize="
+          f"{args.quantize}: wall "
           f"{per_tick:.3f} ms/tick ({wall_ms / args.ticks:.3f} under the "
           f"profiler), device kernel time {device_ms / args.ticks:.3f} "
           f"ms/tick, busy share {device_ms / plain_wall_ms:.3f}, "
@@ -124,6 +131,7 @@ def main() -> int:
         print(f"  {us / 1e3 / args.ticks:8.3f}  {name[:110]}")
     print(json.dumps({
         "card": card, "streams": args.streams, "ticks": args.ticks,
+        "quantize": args.quantize,
         "wall_ms_per_tick": per_tick,
         "profiled_wall_ms_per_tick": wall_ms / args.ticks,
         "device_ms_per_tick": device_ms / args.ticks,
