@@ -24,9 +24,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    CPU (plain versions there): routed predictions within 1e-3, keep sets
    equal;
 7. the w8 matmul: the CUDA kernel against its plain version at the four
-   generator products of a refine stage, 1 and 4 streams, and a ragged
-   shape (max |diff| <= 1e-5 of max |plain|), timed beside the cuBLAS bf16
-   GEMM of the same operands;
+   generator products of a refine stage, 1 and 4 streams, and three
+   ragged shapes (max |diff| <= 1e-5 of max |plain|), timed beside the
+   cuBLAS bf16 GEMM of the same operands; per product its plan (tile
+   width, K splits, CTAs), TFLOP/s, share of its bound and ratio to
+   cuBLAS, and per stage the sums;
 8. the ``quantize="w8"`` server: phase 5's run with the w8 model; the
    counters must show every generator product going through the w8
    kernel (4 per refine stage, 12 a tick); then the ``"int8"`` server,
@@ -330,7 +332,13 @@ def phase_w8(torch, card):
     except (TypeError, RuntimeError, NotImplementedError):
         lib_out = "bf16"
     cases = [(b, name, 240 * b, k, n) for b in (1, 4)
-             for name, k, n in W8_PRODUCTS] + [(0, "ragged", 7, 300, 60)]
+             for name, k, n in W8_PRODUCTS] + [
+                 (0, "ragged", 7, 300, 60), (0, "ragged", 241, 4608, 1024),
+                 (0, "ragged", 960, 72, 8192)]
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[w8_matmul] dynamic shared memory a CTA: " + ", ".join(
+        f"{bn}-wide tiles {tw8.smem_bytes(bn)} B" for bn in (64, 128, 256))
+          + f"; {n_sms} SMs")
     out = {}
     for streams, name, m, k, n in cases:
         rng = np.random.default_rng(m + k + n)
@@ -356,15 +364,28 @@ def phase_w8(torch, card):
         library_ms = device_ms(torch, lib)
         nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n  # x, wq, sw; out
         bound_ms, bound_by = bound(nbytes, 2 * m * k * n, BF16_FLOPS)
+        plan = tw8.w8_plan(m, k, n, n_sms)
         print(f"[w8_matmul] {name} B={streams} [{m}, {k}] @ [{k}, {n}]: max "
               f"|diff| {err:.3g} ({norm_err:.3g} of max |plain|); device "
               f"time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.6f} ms ({bound_by}), cuBLAS bf16 GEMM "
               f"({lib_out} out) {library_ms:.4f} ms [{card}]")
+        print(f"[w8_matmul] {name} B={streams}: {plan.block_n}-wide tiles, "
+              f"{plan.splits} K split(s), {plan.ctas} CTAs; "
+              f"{2 * m * k * n / ms / 1e9:.1f} TFLOP/s, "
+              f"{bound_ms / ms:.3f} of its bound, {ms / library_ms:.2f}x "
+              f"cuBLAS")
         out[(streams, name)] = {"max_abs_err": err, "ms": ms,
                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                                 "bound_by": bound_by,
                                 "library_ms": library_ms}
+    for streams in (1, 4):
+        st = stage_sum(out, streams)
+        print(f"[w8_matmul] stage of 4 products at B={streams}: kernel "
+              f"{st['ms']:.4f} ms, cuBLAS {st['library_ms']:.4f} ms "
+              f"({st['ms'] / st['library_ms']:.2f}x), bound "
+              f"{st['bound_ms']:.6f} ms ({st['bound_ms'] / st['ms']:.3f} of "
+              f"it) [{card}]")
     return out
 
 

@@ -75,11 +75,19 @@ def test_router_chain_kernel_close_to_plain(cuda, streams):
     (960, 4608, 1024),  # gen2_a, factored
     (960, 1024, 8192),  # gen2_b, factored
     (960, 2304, 64),    # out, collapsed
-    (7, 300, 60),       # every axis ragged
+    (240, 64, 8192),    # the same four at 1 stream
+    (240, 4608, 1024),
+    (240, 1024, 8192),
+    (240, 2304, 64),
+    (7, 300, 60),       # every axis ragged (K and N padded)
+    (241, 4608, 1024),  # ragged M, split K
+    (960, 72, 8192),    # K beyond one stage, not a multiple of it
 ])
 def test_w8_matmul_kernel_close_to_plain(cuda, m, k, n):
     """Within 1e-5 of max |plain|: the same bf16 operands, f32 sums in
-    another order (TF32 off for the plain version's f32 matmul)."""
+    another order (TF32 off for the plain version's f32 matmul). A second
+    call gives the same bits (split-K partials are summed in a fixed
+    order), and so does a bf16 x."""
     rng = np.random.default_rng(m + k + n)
     x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(cuda)
     wq, sw = tq.quantize_colwise(torch.from_numpy(
@@ -91,8 +99,10 @@ def test_w8_matmul_kernel_close_to_plain(cuda, m, k, n):
     ref = tq.w8_matmul_prequant(x, wq, sw)
     scale = ref.abs().max().item()
     assert (got - ref).abs().max().item() <= 1e-5 * scale
+    assert torch.equal(tw8.w8_matmul(x, wq, sw), got)
     got_bf16 = tw8.w8_matmul(x.bfloat16(), wq, sw)  # bf16 input, same result
     assert torch.equal(got_bf16, got)
+    assert tw8.w8_matmul.launches == launches + 3
 
 
 @pytest.mark.parametrize("m,k,n", [(960, 4608, 1024), (7, 300, 60)])
