@@ -22,7 +22,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    went through both kernels;
 6. end to end: the same weights run a 2-frame clip on the card and on the
    CPU (plain versions there): routed predictions within 1e-3, keep sets
-   equal;
+   equal; run with cuDNN's TF32 flag on, torch's default, which the model
+   must override itself;
 7. the w8 matmul: the CUDA kernel against its plain version at the four
    generator products of a refine stage, 1 and 4 streams, and three
    ragged shapes (max |diff| <= 1e-5 of max |plain|), timed beside the
@@ -39,8 +40,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     seeded 6-frame clips in chunks of 4, emitting ``.lines.txt`` files;
     the counters must show every frame going through all three kernels.
 
-Float32 throughout outside the quantized products: TF32 is off for
-matmuls and cuDNN convolutions. The line before the last holds one JSON
+Float32 throughout outside the quantized products. The model turns TF32
+off itself (``phnet_torch.device.full_f32``); the script also turns it off
+for the plain versions it holds the kernels against. The line before the last holds one JSON
 object per kernel; the last line is ``{"ok": true, "device": {...}}``.
 Without a card, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -545,7 +547,8 @@ def phase_end_to_end(torch, card, state_dict, quantize="none"):
                                  f"{k_gpu.tolist()} vs {k_cpu.tolist()}")
         print(f"[end-to-end] 2-frame clip card vs CPU: routed max |diff| "
               f"{err:.3g} (<= 1e-3), num_kept {n_gpu.flatten().tolist()} "
-              f"equal, keep sets equal [{card}]")
+              f"equal, keep sets equal; cuDNN TF32 flag "
+              f"{torch.backends.cudnn.allow_tf32} around the model [{card}]")
         return
     def spread(d):
         cls, lane = d[..., :2].numpy(), d[..., 2:].numpy()
@@ -651,7 +654,11 @@ def main() -> int:
     chain = phase_router(torch, card)
     state_dict = seeded_state_dict(torch, vil100_config())
     launches = phase_serving(torch, card, state_dict)
-    phase_end_to_end(torch, card, state_dict)
+    torch.backends.cudnn.allow_tf32 = True  # a user's default
+    try:
+        phase_end_to_end(torch, card, state_dict)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
     w8 = phase_w8(torch, card)
     launches_w8 = phase_serving(torch, card, state_dict, quantize="w8")
     phase_serving(torch, card, state_dict, quantize="int8")

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..config import ModelConfig
-from ..device import resolve_device
+from ..device import full_f32, resolve_device
 from ..ops.nms import lane_nms, nms_proposals_from_predictions
 from .encoder import Encoder
 from .head import HeadOutputs, LaneHead
@@ -91,7 +91,9 @@ class PHNet(nn.Module):
 
     ``device=None`` builds on the card; the parameters are left
     uninitialized: load a state dict (``phnet_torch.convert``) or call
-    :meth:`reset_parameters` with a generator."""
+    :meth:`reset_parameters` with a generator. :meth:`forward`,
+    :meth:`encode` and :meth:`frame_step` compute in float32 whatever the
+    process's TF32 flags say (:func:`~phnet_torch.device.full_f32`)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -110,6 +112,7 @@ class PHNet(nn.Module):
             self.encoder.reset_parameters(g)
             self.head.reset_parameters(g)
 
+    @full_f32()
     def encode(self, frames: torch.Tensor):
         """Backbone + FPN over all clip frames; tuple of [T, B, h, w, c]."""
         b, t = frames.shape[:2]
@@ -132,6 +135,7 @@ class PHNet(nn.Module):
             routed, 1, gather_idx[..., None].expand(-1, -1, routed.shape[-1]))
         return kept, keep_idx, num_kept
 
+    @full_f32()
     def frame_step(self, feats, mem: MemoryState, dyn_combined):
         """One frame: head, routing, keeps, memory write. feats: tuple of
         [B, h, w, c] levels. Returns (InferFrameOut, new memory, routed
@@ -172,6 +176,7 @@ class PHNet(nn.Module):
         return InferFrameOut(*(torch.stack(x) for x in zip(*outs))), mem
 
     @torch.no_grad()
+    @full_f32()
     def forward(self, frames: torch.Tensor,
                 initial_memory: Optional[MemoryState] = None,
                 dyn_combined=None):

@@ -70,6 +70,45 @@ def test_router_chain_kernel_close_to_plain(cuda, streams):
     assert (got - ref).abs().max().item() <= 1e-4
 
 
+def test_f32_server_under_default_flags_matches_cpu():
+    """A full-width f32 server built with torch's TF32 flags at their
+    defaults (cuDNN's on) serves what the CPU serves: the model turns
+    TF32 off itself. As ``chip_smoke.py::phase_end_to_end``: kept rows
+    within 1e-3, equal keep counts and memory masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+    from phnet_torch.config import vil100_config
+    from phnet_torch.serving import StreamingServer
+
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("highest")  # torch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        cfg = vil100_config()
+        weights = chip_smoke.seeded_state_dict(torch, cfg)
+        rng = np.random.default_rng(7)
+        ticks = [{s: rng.normal(size=(cfg.model.img_h, cfg.model.img_w, 3))
+                  .astype(np.float32) for s in range(2)} for _ in range(2)]
+        served = {}
+        for dev in ("cuda", "cpu"):
+            server = StreamingServer(cfg, weights, max_streams=2, device=dev)
+            for _ in range(2):
+                server.attach(ori_img_h=1080, cut_height=378)
+            for frames in ticks:
+                kept, valid, _ = server.step_async(frames)
+            served[dev] = (kept.cpu(), valid.cpu(), server.memory.mask.cpu())
+            assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+    (kg, vg, mg), (kc, vc, mc) = served["cuda"], served["cpu"]
+    assert torch.equal(vg, vc) and torch.equal(mg, mc)
+    assert vc.any(), "NMS kept nothing: the check has no rows"
+    assert (kg - kc)[vc].abs().max().item() <= 1e-3
+
+
 @pytest.mark.parametrize("m,k,n", [
     (960, 64, 8192),    # gen1, collapsed, 4 streams x 240 anchors
     (960, 4608, 1024),  # gen2_a, factored

@@ -14,7 +14,9 @@ limit, the tick wall time with and without the profiler (which adds host
 time to every operation), the device busy share (kernel time over the
 wall time without the profiler), kernel launches per tick, the device
 time by kernel group and the top kernels, and one JSON summary line.
-Float32, TF32 off, as in ``chip_smoke.py``. Needs a CUDA card.
+Float32: the flags are left at torch's defaults, as a user leaves them,
+and the model turns TF32 off itself (``phnet_torch.device.full_f32``).
+Needs a CUDA card.
 """
 
 import argparse
@@ -63,8 +65,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_serving_profile: no CUDA device", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     import chip_smoke
     from phnet_torch.config import vil100_config
