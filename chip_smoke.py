@@ -14,7 +14,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    per call from Python);
 4. the router chain: the CUDA kernel against its plain version at the
    serving shapes [B*240, 64, 36], B = 1 and 4 (max |diff| <= 1e-4, and the
-   router score within 1e-4), both timed;
+   router score within 1e-4), both timed; per B the kernel's plan (planes
+   a CTA, grid, threads), its share of the bound and its speed-up over the
+   first design;
 5. the main path: ``StreamingServer`` with the full-width VIL-100 model
    (seeded random weights), 4 streams, one of them skipping every third
    tick, then a detach and an attach; the kernels' launch counters are
@@ -70,6 +72,10 @@ TPU_KERNELS = {
     "router_chain": "phnet_tpu/ops/router_pallas.py:180 (_router_blocks_kernel)",
     "w8_matmul": "phnet_tpu/ops/w8_pallas.py:54 (_w8_matmul_kernel)",
 }
+# K2's device time by streams with its first design (one 256-thread CTA a
+# plane, two barriers a LayerNorm), from phase 4 of this script on an
+# NVIDIA H100 80GB HBM3 at 700 W: the yardstick of the present design
+K2_FIRST_DESIGN_MS = {1: 0.0364, 4: 0.1158}
 # the generator products of one VIL refine stage: (name, K, N), M = 240 x
 # streams rows
 W8_PRODUCTS = (("gen1", 64, 8192), ("gen2_a", 4608, 1024),
@@ -191,6 +197,11 @@ def phase_build():
         for line in log.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling")):
                 print(f"[build] {name}: {line.strip()}")
+    from phnet_torch.ops import router_chain as trc
+
+    print("[build] router_chain: dynamic shared memory a CTA at [64, 36], "
+          "4 blocks: " + ", ".join(f"G={g} {trc.smem_bytes(64, 36, g, 4)} B"
+                                   for g in trc.GROUPS))
 
 
 def phase_nms(torch, card):
@@ -253,6 +264,7 @@ def phase_router(torch, card):
         lnp = router.ln_params
         lnp.add_(0.1 * torch.randn(lnp.shape, generator=torch.Generator(
         ).manual_seed(2)).to(dev))
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for streams in (1, 4):
         g = torch.Generator().manual_seed(10 + streams)
@@ -279,11 +291,16 @@ def phase_router(torch, card):
         nbytes = 4 * (2 * n * c * p + a * blocks * 20
                       + (2 + 4 * blocks) * c * p)
         bound_ms, bound_by = bound(nbytes, chain_ops(n, c, p, blocks))
+        plan = trc.router_plan(n, a, n_sms, c, p)
         print(f"[router_chain] B={streams} [{n}, {c}, {p}]: max |diff| "
               f"{err:.3g}, score {score_err:.3g}; device time: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} "
               f"ms ({bound_by}); per call from Python: kernel "
               f"{call_ms:.4f} ms [{card}]")
+        print(f"[router_chain] B={streams}: G={plan.group} planes a CTA, "
+              f"grid {plan.grid}, {plan.threads} threads; {bound_ms / ms:.3f}"
+              f" of its bound; {K2_FIRST_DESIGN_MS[streams] / ms:.2f}x the "
+              f"first design's {K2_FIRST_DESIGN_MS[streams]} ms")
         out[streams] = {"max_abs_err": max(err, score_err), "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by}

@@ -1,216 +1,377 @@
-// The adaptive router's residual chain, one CTA per anchor plane.
+// The adaptive router's residual chain: one CTA per anchor, over the
+// planes of that anchor from a group of G streams.
 //
 // Replaces the TPU kernel phnet_tpu/ops/router_pallas.py::
-// _router_blocks_kernel (wrapper fused_router_blocks). Per anchor, on its
-// [C, P] plane: LN0, then `blocks` times: depthwise 3x3 (zero padding,
-// per-anchor taps and bias) -> LN -> ReLU -> 3x3 -> LN -> + residual ->
-// ReLU. Forward only.
+// _router_blocks_kernel (wrapper fused_router_blocks). Per plane [C, P]:
+// LN0, then `blocks` times: depthwise 3x3 (zero padding, per-anchor taps
+// and bias) -> LN -> ReLU -> 3x3 -> LN -> + residual -> ReLU. Forward only.
 //
 // LayerNorm is the fast-variance form of the default JAX path
-// (router_pallas.py::_ln: var = max(E[x^2] - E[x]^2, 0), eps 1e-5), so the
-// kernel and its plain PyTorch version differ only in summation order.
+// (router_pallas.py::_ln: var = max(E[x^2] - E[x]^2, 0), eps 1e-5), and
+// each 3x3 sums its taps in the plain version's order k = 3(dc+1)+(dp+1),
+// so the kernel and its plain PyTorch version differ only in how the
+// LayerNorm sums are grouped.
 //
-// What bounds it on an H100: bytes, nearly. At the serving shape
-// (B = 4 streams, 960 planes of 64 x 36 f32) a call reads 8.8 MB and writes
-// 8.8 MB (about 5.3 us at 3.35 TB/s); the chain does about 230 f32
-// operations per element (about 7.6 us at 67 TFLOP/s), so the two bounds
-// are close. The nine LayerNorms are block-wide reductions, each a pair of
-// barriers, which is what a simple kernel actually waits on.
+// What bounds it on an H100: not bytes and not the FP32 rate but the
+// latency of one plane's chain. At the serving shape (B = 4 streams, 960
+// planes of 64 x 36 f32) the bound is about 7.4 us (operations; the
+// 17.7 MB of planes in and out take 5.3 us), yet a plane is a chain of 8
+// convolutions and 9 plane-wide reductions, each waiting on the one
+// before it. A design with one CTA a plane waits on that chain 960 times
+// in three waves, with little work between its barriers.
 //
-// What the design does about it: each plane is read from device memory
-// once and written once. In between it lives in registers (each thread
-// owns up to KMAX elements) and in two shared-memory buffers (9.2 KB each)
-// that the 3x3 reads its neighbours from; the taps and biases of the anchor
-// sit in shared memory; the LayerNorm affine parameters (166 KB, shared by
-// all anchors) are read through L2. Many small CTAs keep every SM busy.
+// What the design does about it:
+// - One CTA takes the planes of one anchor from G streams (G in 1, 2, 4,
+//   chosen by ops/router_chain.py::router_plan so that one wave holds the
+//   tick): every barrier and every reduction serves G planes, the
+//   anchor's 72 taps and 8 biases are loaded once into shared memory and
+//   read as broadcasts, and each LayerNorm parameter a thread loads
+//   serves G planes. At B = 4 that is 240 CTAs, one wave at 2 CTAs an SM.
+// - A thread owns a strip of R = 8 channels at one point (288 threads for
+//   64 x 36) and keeps its strip of the residual x and of the block's
+//   value in registers. The 3x3 reads its neighbours from a shared plane
+//   laid out [C+2][P+2] with a zero halo, written once: no divide and no
+//   bounds test; each value read feeds up to three taps of the strip
+//   ((R+2) x 3 reads for 9R multiply-adds). One plane a stream suffices:
+//   a LayerNorm's barrier also ends every read of the plane before it is
+//   overwritten.
+// - Each LayerNorm takes one barrier: warps reduce their 2G partial sums
+//   with shuffles, lane 0 writes them to a buffer double-buffered by the
+//   LayerNorm's parity, and after the barrier every thread sums the
+//   warps' partials in the same fixed order, so every thread holds the
+//   same statistics and two calls give the same bits. The LayerNorm's
+//   scale and bias loads are issued before the reduction.
+// - C and P are template parameters for the path's shape (64, 36); other
+//   shapes run the same kernel with C and P at run time.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kR = 8;  // channels a thread owns at its point
+constexpr float kEps = 1e-5f;
+constexpr int kMaxThreads = 512;  // 128 registers a thread
+constexpr int kTapStride = 12;    // floats of a conv's taps and bias
 
-// Sum of (a, b) over the block; every thread gets the totals.
-__device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, off);
-    b += __shfl_xor_sync(0xffffffffu, b, off);
+// Threads of a CTA for a [c, p] plane: one per strip, whole warps.
+__host__ __device__ constexpr int cta_threads(int c, int p) {
+  return ((c / kR) * p + 31) / 32 * 32;
+}
+
+// Where a [C, P] plane lives in shared memory: rows of W = P + 2 with a
+// zero halo (channels -1 and C, points -1 and P), and after every strip
+// of kR channels a gap of `pad` floats that makes a strip's stride
+// congruent to P mod 32. Thread t = strip * P + p then reads and writes
+// bank (t + const) mod 32 on every row: no bank conflict where a warp
+// spans two strips.
+struct HaloPlane {
+  int W, pad;
+  __host__ __device__ explicit HaloPlane(int P)
+      : W(P + 2), pad((((P - kR * (P + 2)) % 32) + 32) % 32) {}
+  __host__ __device__ int floats(int C) const {  // a plane, gaps included
+    return (C + 2) * W + (C / kR + 1) * pad;
   }
-  const int warp = threadIdx.x >> 5;
+  // index of (channel strip * kR, point p)
+  __host__ __device__ int at(int strip, int p) const {
+    return W + pad + strip * (kR * W + pad) + p + 1;
+  }
+};
+
+__device__ __forceinline__ void load_affine(float (&sc)[kR], float (&bi)[kR],
+                                            const float* __restrict__ scale,
+                                            const float* __restrict__ bias,
+                                            int e0, int P) {
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    sc[r] = __ldg(scale + e0 + r * P);
+    bi[r] = __ldg(bias + e0 + r * P);
+  }
+}
+
+// LayerNorm of the G planes held in v with the affine parameters of the
+// thread's strip (loaded one LayerNorm ahead). `red` is this LayerNorm's
+// half of the reduction buffer, [n_warps][2G] (sum, sum of squares of
+// each plane). A warp reduces its 2G values with a halving butterfly
+// (a lane hands on the half it does not keep), so that L = 32 / 2G lanes
+// end with each value; after the one barrier, the lanes of value k sum
+// it over the warps in a fixed order and every lane fetches the 2G
+// totals. Every thread gets the same bits.
+template <int kG>
+__device__ __forceinline__ void layer_norm(float (&v)[kG][kR],
+                                           const float (&sc)[kR],
+                                           const float (&bi)[kR],
+                                           float inv_cp, bool owner,
+                                           float* red, int n_warps) {
+  constexpr int V = 2 * kG, L = 32 / V;
+  constexpr unsigned kAll = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-  if (lane == 0) {
-    red[2 * warp] = a;
-    red[2 * warp + 1] = b;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    a = lane < kWarps ? red[2 * lane] : 0.f;
-    b = lane < kWarps ? red[2 * lane + 1] : 0.f;
-    for (int off = 16; off > 0; off >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, off);
-      b += __shfl_xor_sync(0xffffffffu, b, off);
-    }
-    if (lane == 0) {
-      red[2 * kWarps] = a;
-      red[2 * kWarps + 1] = b;
+  float q[V];
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    q[2 * g] = 0.f;
+    q[2 * g + 1] = 0.f;
+    if (owner) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        q[2 * g] += v[g][r];
+        q[2 * g + 1] = fmaf(v[g][r], v[g][r], q[2 * g + 1]);
+      }
     }
   }
+#pragma unroll
+  for (int n = V, off = 16; n > 1; n >>= 1, off >>= 1) {
+    const bool up = lane & off;  // keeps the upper half of its n values
+#pragma unroll
+    for (int j = 0; j < n / 2; ++j) {
+      const float keep = up ? q[j + n / 2] : q[j];
+      const float send = up ? q[j] : q[j + n / 2];
+      q[j] = keep + __shfl_xor_sync(kAll, send, off);
+    }
+  }
+  float part = q[0];  // value lane / L, over the lanes of this residue
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    part += __shfl_xor_sync(kAll, part, off);
+  if (lane % L == 0) red[(threadIdx.x >> 5) * V + lane / L] = part;
   __syncthreads();
-  a = red[2 * kWarps];
-  b = red[2 * kWarps + 1];
+  float sum[V];
+  if constexpr (kG == 1) {  // one plane: a short chain of broadcast reads
+    sum[0] = sum[1] = 0.f;
+#pragma unroll
+    for (int w = 0; w < n_warps; ++w) {
+      const float2 q2 = reinterpret_cast<const float2*>(red)[w];
+      sum[0] += q2.x;
+      sum[1] += q2.y;
+    }
+  } else {  // the lanes of value k add it over warps k % L, k % L + L, ...
+    float tot = 0.f;
+    for (int w = lane % L; w < n_warps; w += L) tot += red[w * V + lane / L];
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1)
+      tot += __shfl_xor_sync(kAll, tot, off);
+#pragma unroll
+    for (int k = 0; k < V; ++k) sum[k] = __shfl_sync(kAll, tot, k * L);
+  }
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    const float mean = sum[2 * g] * inv_cp;
+    const float mean2 = sum[2 * g + 1] * inv_cp;
+    const float rs = rsqrtf(fmaxf(mean2 - mean * mean, 0.f) + kEps);
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      v[g][r] = fmaf((v[g][r] - mean) * rs, sc[r], bi[r]);
+  }
 }
 
-// LayerNorm over the plane held in v (fast variance, eps 1e-5).
-template <int K>
-__device__ __forceinline__ void layer_norm(float (&v)[K],
-                                           const float* __restrict__ scale,
-                                           const float* __restrict__ bias,
-                                           int cp, float* red) {
-  float s = 0.f, ss = 0.f;
+// v <- depthwise 3x3 + bias of the G planes whose thread's strips v
+// holds, and whose halo copies are at s_pl: the strip's own column comes
+// from v, the two neighbouring columns and the rows above and below the
+// strip from shared memory. `at` is the strip's first element; s_k the
+// conv's 9 taps and bias, 16-byte aligned (three broadcast reads).
+template <int kG>
+__device__ __forceinline__ void conv3x3(float (&v)[kG][kR],
+                                        const float* s_pl, int plane, int at,
+                                        HaloPlane h, const float* s_k) {
+  const float4 k03 = reinterpret_cast<const float4*>(s_k)[0];
+  const float4 k47 = reinterpret_cast<const float4*>(s_k)[1];
+  const float4 k8b = reinterpret_cast<const float4*>(s_k)[2];
+  const float k[9] = {k03.x, k03.y, k03.z, k03.w, k47.x,
+                      k47.y, k47.z, k47.w, k8b.x};
+  const float b = k8b.y;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int e = threadIdx.x + k * kThreads;
-    if (e < cp) {
-      s += v[k];
-      ss += v[k] * v[k];
-    }
-  }
-  block_sum2(s, ss, red);
-  const float mean = s / (float)cp;
-  const float mean2 = ss / (float)cp;
-  const float r = rsqrtf(fmaxf(mean2 - mean * mean, 0.f) + 1e-5f);
+  for (int g = 0; g < kG; ++g) {
+    const float* src = s_pl + g * plane + at;
+    float acc[kR];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int e = threadIdx.x + k * kThreads;
-    if (e < cp) v[k] = (v[k] - mean) * r * __ldg(scale + e) + __ldg(bias + e);
-  }
-}
-
-// v <- depthwise 3x3 of the plane in src (zero padding) + bias.
-template <int K>
-__device__ __forceinline__ void conv3x3(float (&v)[K], const float* src,
-                                        const float* taps, float bias, int c,
-                                        int p) {
-  const int cp = c * p;
+    for (int i = 0; i < kR; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int e = threadIdx.x + k * kThreads;
-    if (e < cp) {
-      const int ci = e / p;
-      const int pi = e - ci * p;
-      float acc = 0.f;
+    for (int rr = 0; rr < kR + 2; ++rr) {  // input channel strip*kR - 1 + rr
+      const int row = (rr - 1) * h.W + (rr == 0 ? -h.pad : 0) +
+                      (rr == kR + 1 ? h.pad : 0);
+      const bool own = rr >= 1 && rr <= kR;
+      const float v0 = src[row - 1], v2 = src[row + 1];
+      const float v1 = own ? v[g][own ? rr - 1 : 0] : src[row];
 #pragma unroll
-      for (int dc = -1; dc <= 1; ++dc) {
-#pragma unroll
-        for (int dp = -1; dp <= 1; ++dp) {
-          const int cc = ci + dc;
-          const int pp = pi + dp;
-          if (cc >= 0 && cc < c && pp >= 0 && pp < p)
-            acc += taps[(dc + 1) * 3 + (dp + 1)] * src[cc * p + pp];
+      for (int dc = -1; dc <= 1; ++dc) {  // ascending dc for each output
+        const int i = rr - 1 - dc;          // output channel strip*kR + i
+        if (i >= 0 && i < kR) {
+          const int k0 = 3 * (dc + 1);
+          acc[i] = fmaf(k[k0], v0, acc[i]);
+          acc[i] = fmaf(k[k0 + 1], v1, acc[i]);
+          acc[i] = fmaf(k[k0 + 2], v2, acc[i]);
         }
       }
-      v[k] = acc + bias;
     }
+#pragma unroll
+    for (int i = 0; i < kR; ++i) v[g][i] = acc[i] + b;
   }
 }
 
-template <int K>
-__global__ void __launch_bounds__(kThreads)
+template <int kG>
+__device__ __forceinline__ void publish(const float (&v)[kG][kR],
+                                        float* s_pl, int plane, int at,
+                                        int W, bool owner) {
+  if (!owner) return;
+#pragma unroll
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int r = 0; r < kR; ++r) s_pl[g * plane + at + r * W] = v[g][r];
+}
+
+// kC = kP = 0: C and P at run time, up to kMaxThreads threads.
+template <int kC, int kP, int kG>
+__global__ void __launch_bounds__(kC > 0 ? cta_threads(kC, kP) : kMaxThreads,
+                                  kC > 0 ? 2 : 1)
 router_chain_kernel(const float* __restrict__ x,
                     const float* __restrict__ taps,
                     const float* __restrict__ bias,
                     const float* __restrict__ lnp, float* __restrict__ out,
-                    int A, int C, int P, int blocks) {
-  extern __shared__ float smem[];
-  const int cp = C * P;
-  float* s_x = smem;             // [cp] block input (the residual)
-  float* s_y = s_x + cp;         // [cp] first conv's output
-  float* s_taps = s_y + cp;      // [blocks * 18]
-  float* s_bias = s_taps + blocks * 18;  // [blocks * 2]
-  float* red = s_bias + blocks * 2;      // [2 * kWarps + 2]
+                    int n_streams, int A, int c_rt, int p_rt, int blocks) {
+  const int C = kC > 0 ? kC : c_rt;
+  const int P = kP > 0 ? kP : p_rt;
+  const HaloPlane h(P);
+  const int plane = h.floats(C), cp = C * P;
+  const float inv_cp = 1.f / (float)cp;
+  const int owners = (C / kR) * P;
+  const int n_warps = kC > 0 ? cta_threads(kC, kP) / 32 : blockDim.x >> 5;
 
-  const int n = blockIdx.x;
-  const int a = n % A;
-  for (int i = threadIdx.x; i < blocks * 18; i += kThreads)
-    s_taps[i] = taps[(size_t)a * blocks * 18 + i];
-  for (int i = threadIdx.x; i < blocks * 2; i += kThreads)
-    s_bias[i] = bias[(size_t)a * blocks * 2 + i];
+  extern __shared__ __align__(16) float smem[];
+  float* s_red = smem;                                // [2][n_warps][2G]
+  // [2 * blocks][kTapStride]: a conv's 9 taps, its bias, 2 zeros
+  float* s_k = s_red + 2 * n_warps * 2 * kG;
+  float* s_x = s_k + 2 * blocks * kTapStride;         // [kG] halo planes
+  float* s_y = s_x + kG * plane;                      // [kG] halo planes
 
-  const float* xin = x + (size_t)n * cp;
-  float xr[K], yr[K];
+  const int t = threadIdx.x;
+  // every thread owns a strip when the instance's threads are whole warps
+  const bool owner = (kC > 0 && cta_threads(kC, kP) == owners) || t < owners;
+  const int strip = owner ? t / P : 0;
+  const int pt = owner ? t - strip * P : 0;
+  const int e0 = strip * kR * P + pt;  // plane index of the strip's row 0
+  const int at = h.at(strip, pt);      // halo-plane index of it
+
+  const int a = blockIdx.x;
+  const int s0 = blockIdx.y * kG;  // first stream of the group
+  float xr[kG][kR], sc[kR], bi[kR];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int e = threadIdx.x + k * kThreads;
-    xr[k] = e < cp ? xin[e] : 0.f;
+  for (int g = 0; g < kG; ++g) {
+    const bool live = owner && s0 + g < n_streams;
+    const float* xin = x + ((size_t)(s0 + g) * A + a) * cp + e0;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) xr[g][r] = live ? xin[r * P] : 0.f;
   }
-  layer_norm(xr, lnp, lnp + cp, cp, red);  // its barriers publish s_taps
+  load_affine(sc, bi, lnp, lnp + cp, e0, P);
+  for (int i = t; i < 2 * kG * plane; i += blockDim.x) s_x[i] = 0.f;
+  for (int i = t; i < 2 * blocks * kTapStride; i += blockDim.x) {
+    const int conv = i / kTapStride, j = i - conv * kTapStride;
+    s_k[i] = j < 9 ? taps[((size_t)a * blocks * 2 + conv) * 9 + j]
+                   : j == 9 ? bias[(size_t)a * blocks * 2 + conv] : 0.f;
+  }
 
+  // LN0; its barrier also publishes the zeroed planes, taps and biases
+  layer_norm(xr, sc, bi, inv_cp, owner, s_red, n_warps);
+  load_affine(sc, bi, lnp + 2 * cp, lnp + 3 * cp, e0, P);
+  publish(xr, s_x, plane, at, h.W, owner);
+  __syncthreads();
+
+  // xr holds the thread's strips of the plane the next 3x3 reads; x
+  // itself lives in s_x from here on
   for (int blk = 0; blk < blocks; ++blk) {
     const float* ln = lnp + (size_t)(2 + 4 * blk) * cp;
+    conv3x3(xr, s_x, plane, at, h, s_k + 2 * blk * kTapStride);
+    layer_norm(xr, sc, bi, inv_cp, owner, s_red + n_warps * 2 * kG, n_warps);
+    load_affine(sc, bi, ln + 2 * cp, ln + 3 * cp, e0, P);
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int e = threadIdx.x + k * kThreads;
-      if (e < cp) s_x[e] = xr[k];
-    }
+    for (int g = 0; g < kG; ++g)
+#pragma unroll
+      for (int r = 0; r < kR; ++r) xr[g][r] = fmaxf(xr[g][r], 0.f);
+    publish(xr, s_y, plane, at, h.W, owner);
     __syncthreads();
-    conv3x3(yr, s_x, s_taps + blk * 18, s_bias[2 * blk], C, P);
-    layer_norm(yr, ln, ln + cp, cp, red);
+    conv3x3(xr, s_y, plane, at, h, s_k + (2 * blk + 1) * kTapStride);
+    layer_norm(xr, sc, bi, inv_cp, owner, s_red, n_warps);
+    if (blk + 1 < blocks) load_affine(sc, bi, ln + 4 * cp, ln + 5 * cp, e0, P);
+    // + residual: the thread's own strip of x, which no other thread
+    // writes; every read of s_x by the block's first 3x3 ended at the
+    // barrier of the LayerNorm after it
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int e = threadIdx.x + k * kThreads;
-      if (e < cp) s_y[e] = fmaxf(yr[k], 0.f);
+    for (int g = 0; g < kG; ++g)
+#pragma unroll
+      for (int r = 0; r < kR; ++r)
+        xr[g][r] = fmaxf(xr[g][r] + s_x[g * plane + at + r * h.W], 0.f);
+    if (blk + 1 < blocks) {
+      publish(xr, s_x, plane, at, h.W, owner);
+      __syncthreads();
     }
-    __syncthreads();
-    conv3x3(yr, s_y, s_taps + blk * 18 + 9, s_bias[2 * blk + 1], C, P);
-    layer_norm(yr, ln + 2 * cp, ln + 3 * cp, cp, red);
-#pragma unroll
-    for (int k = 0; k < K; ++k) xr[k] = fmaxf(yr[k] + xr[k], 0.f);
   }
 
-  float* o = out + (size_t)n * cp;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int e = threadIdx.x + k * kThreads;
-    if (e < cp) o[e] = xr[k];
+  for (int g = 0; g < kG; ++g) {
+    if (!owner || s0 + g >= n_streams) continue;
+    float* o = out + ((size_t)(s0 + g) * A + a) * cp + e0;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) o[r * P] = xr[g][r];
   }
 }
 
-template <int K>
+template <int kC, int kP, int kG>
 int launch(const float* x, const float* taps, const float* bias,
-           const float* lnp, float* out, int N, int A, int C, int P,
+           const float* lnp, float* out, int n_streams, int A, int C, int P,
            int blocks, cudaStream_t stream) {
-  const size_t smem =
-      (2 * (size_t)C * P + blocks * 20 + 2 * kWarps + 2) * sizeof(float);
+  const int threads = cta_threads(C, P);
+  const size_t smem = (2 * (threads / 32) * kG * 2 +
+                       (size_t)2 * blocks * kTapStride +
+                       2 * (size_t)kG * HaloPlane(P).floats(C)) *
+                      sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        router_chain_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        router_chain_kernel<kC, kP, kG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  if (N > 0)
-    router_chain_kernel<K><<<N, kThreads, smem, stream>>>(
-        x, taps, bias, lnp, out, A, C, P, blocks);
+  const dim3 grid(A, (n_streams + kG - 1) / kG);
+  router_chain_kernel<kC, kP, kG><<<grid, threads, smem, stream>>>(
+      x, taps, bias, lnp, out, n_streams, A, C, P, blocks);
   return (int)cudaGetLastError();
+}
+
+template <int kC, int kP>
+int launch_group(const float* x, const float* taps, const float* bias,
+                 const float* lnp, float* out, int n_streams, int A, int C,
+                 int P, int blocks, int group, cudaStream_t s) {
+  switch (group) {
+    case 1:
+      return launch<kC, kP, 1>(x, taps, bias, lnp, out, n_streams, A, C, P,
+                               blocks, s);
+    case 2:
+      return launch<kC, kP, 2>(x, taps, bias, lnp, out, n_streams, A, C, P,
+                               blocks, s);
+    case 4:
+      return launch<kC, kP, 4>(x, taps, bias, lnp, out, n_streams, A, C, P,
+                               blocks, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // x, out: [N, C, P] with N a multiple of A (plane n belongs to anchor
-// n % A); taps: [A, blocks * 18]; bias: [A, blocks * 2];
-// lnp: [2 + 4 * blocks, C, P]. Returns a cudaError_t (0 = launched);
-// planes of more than 16 * 256 elements are refused.
+// n % A, stream n / A); taps: [A, blocks * 18]; bias: [A, blocks * 2];
+// lnp: [2 + 4 * blocks, C, P]. `group`: planes of one anchor a CTA (1, 2
+// or 4; ops/router_chain.py::router_plan). Returns a cudaError_t (0 =
+// launched). Shapes the kernel does not take (C not a multiple of 8, or
+// more than 512 threads: C * P > 4096) return cudaErrorInvalidValue.
 extern "C" int router_chain_launch(const float* x, const float* taps,
                                    const float* bias, const float* lnp,
                                    float* out, int N, int A, int C, int P,
-                                   int blocks, void* stream) {
-  const int per_thread = (C * P + kThreads - 1) / kThreads;
+                                   int blocks, void* stream, int group) {
+  if (A <= 0 || C <= 0 || P <= 0 || N % A != 0 || C % kR != 0 ||
+      cta_threads(C, P) > kMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (per_thread <= 4)
-    return launch<4>(x, taps, bias, lnp, out, N, A, C, P, blocks, s);
-  if (per_thread <= 9)
-    return launch<9>(x, taps, bias, lnp, out, N, A, C, P, blocks, s);
-  if (per_thread <= 16)
-    return launch<16>(x, taps, bias, lnp, out, N, A, C, P, blocks, s);
-  return (int)cudaErrorInvalidValue;
+  if (C == 64 && P == 36)
+    return launch_group<64, 36>(x, taps, bias, lnp, out, N / A, A, C, P,
+                                blocks, group, s);
+  return launch_group<0, 0>(x, taps, bias, lnp, out, N / A, A, C, P, blocks,
+                            group, s);
 }

@@ -7,17 +7,76 @@ and bias) -> LN -> ReLU -> 3x3 -> LN -> + residual -> ReLU.
 
 :func:`router_chain` is the wrapper: CUDA tensors run the kernel
 ``csrc/router_chain.cu``, CPU tensors run :func:`router_chain_plain`.
+:func:`router_plan` chooses how the kernel groups the planes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+
+STRIP = 8            # channels a kernel thread owns at its point (kR)
+GROUPS = (1, 2, 4)   # planes of one anchor a CTA: the kernel's instances
+CTAS_PER_SM = 2      # the kernel's launch bounds at the path's shape
+MAX_THREADS = 512    # a CTA of the kernel at most (C * P <= 4096)
+
+
+class RouterPlan(NamedTuple):
+    group: int              # G: planes of one anchor, one a stream, a CTA
+    grid: Tuple[int, int]   # (anchors, stream groups)
+    threads: int            # a CTA: one a strip of STRIP channels, whole warps
+
+
+def router_plan(n_planes: int, anchors: int, sm_count: int, c: int = 64,
+                p: int = 36) -> RouterPlan:
+    """How the kernel covers ``n_planes`` = B x ``anchors`` planes: CTA
+    (a, y) takes anchor a of streams y*G .. y*G + G - 1 (the last group
+    may be partial). G is the smallest of :data:`GROUPS` whose grid fits
+    one wave (``CTAS_PER_SM`` CTAs on each of ``sm_count`` SMs), and no
+    larger than B needs; where none fits, the largest."""
+    streams = n_planes // anchors
+    need = next((g for g in GROUPS if g >= min(streams, GROUPS[-1])),
+                GROUPS[-1])
+    wave = CTAS_PER_SM * sm_count
+    group = next((g for g in GROUPS if g <= need
+                  and anchors * -(-streams // g) <= wave), need)
+    return RouterPlan(group, (anchors, -(-streams // group)),
+                      cta_threads(c, p))
+
+
+def cta_threads(c: int, p: int) -> int:
+    """Threads of a CTA for a [c, p] plane: one a strip, whole warps."""
+    return -(-(c // STRIP) * p // 32) * 32
+
+
+def smem_bytes(c: int, p: int, group: int, blocks: int) -> int:
+    """Dynamic shared memory of a CTA, as the launcher sizes it: the
+    LayerNorm partials (two halves), the anchor's taps and biases (12
+    floats a conv), and two
+    zero-halo planes (x and the block's middle value) a stream, each
+    strip of STRIP rows followed by a gap that keeps warps off bank
+    conflicts."""
+    warps = cta_threads(c, p) // 32
+    pad = (p - STRIP * (p + 2)) % 32
+    plane = (c + 2) * (p + 2) + (c // STRIP + 1) * pad
+    return 4 * (2 * warps * group * 2 + blocks * 24 + 2 * group * plane)
+
+
+def plan_planes(plan: RouterPlan, n_planes: int) -> torch.Tensor:
+    """The planes each CTA of ``plan`` computes, as the kernel indexes
+    them: [anchors, stream groups, G], -1 where a partial group has no
+    stream."""
+    anchors, groups = plan.grid
+    stream = (torch.arange(groups)[:, None] * plan.group
+              + torch.arange(plan.group))[None]
+    planes = stream * anchors + torch.arange(anchors)[:, None, None]
+    return torch.where(planes < n_planes, planes, -1)
 
 
 def layer_norm_cp(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -73,9 +132,14 @@ def router_chain_plain(x: torch.Tensor, taps: torch.Tensor,
 def _launcher():
     fn = _build.load("router_chain").router_chain_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, i]
     fn.restype = i
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _chain_cuda(x, taps, bias, ln_params, blocks: int):
@@ -96,12 +160,17 @@ def _chain_cuda(x, taps, bias, ln_params, blocks: int):
     if n % a:
         raise ValueError(f"router_chain kernel: {n} planes is not a "
                          f"multiple of {a} anchors")
+    if c % STRIP or cta_threads(c, p) > MAX_THREADS:
+        raise ValueError(f"router_chain kernel: a [{c}, {p}] plane needs C "
+                         f"a multiple of {STRIP} and at most {MAX_THREADS} "
+                         f"threads of one strip each")
+    plan = router_plan(n, a, _sm_count(x.device), c, p)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _launcher()(x.data_ptr(), taps.data_ptr(), bias.data_ptr(),
                           ln_params.data_ptr(), out.data_ptr(), n, a, c, p,
-                          blocks, stream)
+                          blocks, stream, plan.group)
     if err != 0:
         raise RuntimeError(
             f"router_chain kernel launch failed: CUDA error {err}")

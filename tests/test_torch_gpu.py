@@ -53,10 +53,17 @@ def test_lane_nms_kernel_bit_equal_to_plain(cuda):
         assert torch.equal(g.cpu(), r.cpu())
 
 
-@pytest.mark.parametrize("streams", [1, 4])
-def test_router_chain_kernel_close_to_plain(cuda, streams):
+@pytest.mark.parametrize("streams,a,c,p", [
+    (1, 240, 64, 36), (2, 240, 64, 36), (3, 240, 64, 36), (4, 240, 64, 36),
+    (8, 240, 64, 36),               # the path's shape; B=3 a partial group
+    (1, 32, 16, 12), (4, 32, 16, 12),  # C and P at run time
+])
+def test_router_chain_kernel_close_to_plain(cuda, streams, a, c, p):
+    """Within 1e-4 of the plain version; a second call gives the same
+    bits (the LayerNorm partials are summed in a fixed order); one launch
+    a call."""
     rng = np.random.default_rng(streams)
-    a, c, p, blocks = 240, 64, 36, 4
+    blocks = 4
     f32 = lambda *sh: torch.from_numpy(  # noqa: E731
         rng.normal(size=sh).astype(np.float32)).to(cuda)
     x, taps = f32(streams * a, c, p), f32(a, blocks * 18) * 0.2
@@ -68,6 +75,8 @@ def test_router_chain_kernel_close_to_plain(cuda, streams):
     assert trc.router_chain.launches == launches + 1
     ref = trc.router_chain_plain(x, taps, bias, lnp, blocks)
     assert (got - ref).abs().max().item() <= 1e-4
+    assert torch.equal(trc.router_chain(x, taps, bias, lnp, blocks), got)
+    assert trc.router_chain.launches == launches + 2
 
 
 def test_f32_server_under_default_flags_matches_cpu():
