@@ -75,6 +75,10 @@ struct HaloPlane {
   __host__ __device__ int at(int strip, int p) const {
     return W + pad + strip * (kR * W + pad) + p + 1;
   }
+  // index of (channel c, point p), c in [-1, C], p in [-1, P]
+  __device__ int index(int c, int p) const {
+    return W + pad + c * W + (c >= 0 ? c / kR : -1) * pad + p + 1;
+  }
 };
 
 __device__ __forceinline__ void load_affine(float (&sc)[kR], float (&bi)[kR],
@@ -261,17 +265,34 @@ router_chain_kernel(const float* __restrict__ x,
     for (int r = 0; r < kR; ++r) xr[g][r] = live ? xin[r * P] : 0.f;
   }
   load_affine(sc, bi, lnp, lnp + cp, e0, P);
-  for (int i = t; i < 2 * kG * plane; i += blockDim.x) s_x[i] = 0.f;
+  // zero the halos of the 2G planes: rows -1 and C, points -1 and P
+  const int n_halo = 2 * h.W + 2 * C;
+  for (int i = t; i < 2 * kG * n_halo; i += blockDim.x) {
+    const int pl = i / n_halo, j = i - pl * n_halo;
+    const bool row = j < 2 * h.W;
+    const int c = row ? (j < h.W ? -1 : C) : (j - 2 * h.W) >> 1;
+    const int pp = row ? (j < h.W ? j : j - h.W) - 1 : (j & 1 ? P : -1);
+    s_x[pl * plane + h.index(c, pp)] = 0.f;
+  }
   for (int i = t; i < 2 * blocks * kTapStride; i += blockDim.x) {
     const int conv = i / kTapStride, j = i - conv * kTapStride;
     s_k[i] = j < 9 ? taps[((size_t)a * blocks * 2 + conv) * 9 + j]
                    : j == 9 ? bias[(size_t)a * blocks * 2 + conv] : 0.f;
   }
 
-  // LN0; its barrier also publishes the zeroed planes, taps and biases
+  // LN0; its barrier also publishes the zeroed halos, taps and biases
   layer_norm(xr, sc, bi, inv_cp, owner, s_red, n_warps);
   load_affine(sc, bi, lnp + 2 * cp, lnp + 3 * cp, e0, P);
   publish(xr, s_x, plane, at, h.W, owner);
+  // x in registers too where they allow (G <= 2), else read back from s_x
+  constexpr bool kKeepX = kG <= 2;
+  float xk[kKeepX ? kG : 1][kR];
+  if constexpr (kKeepX) {
+#pragma unroll
+    for (int g = 0; g < kG; ++g)
+#pragma unroll
+      for (int r = 0; r < kR; ++r) xk[g][r] = xr[g][r];
+  }
   __syncthreads();
 
   // xr holds the thread's strips of the plane the next 3x3 reads; x
@@ -296,8 +317,14 @@ router_chain_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int g = 0; g < kG; ++g)
 #pragma unroll
-      for (int r = 0; r < kR; ++r)
-        xr[g][r] = fmaxf(xr[g][r] + s_x[g * plane + at + r * h.W], 0.f);
+      for (int r = 0; r < kR; ++r) {
+        if constexpr (kKeepX) {
+          xr[g][r] = fmaxf(xr[g][r] + xk[g][r], 0.f);
+          xk[g][r] = xr[g][r];
+        } else {
+          xr[g][r] = fmaxf(xr[g][r] + s_x[g * plane + at + r * h.W], 0.f);
+        }
+      }
     if (blk + 1 < blocks) {
       publish(xr, s_x, plane, at, h.W, owner);
       __syncthreads();
