@@ -8,41 +8,51 @@
 //
 // LayerNorm is the fast-variance form of the default JAX path
 // (router_pallas.py::_ln: var = max(E[x^2] - E[x]^2, 0), eps 1e-5), and
-// each 3x3 sums its taps in the plain version's order k = 3(dc+1)+(dp+1),
-// so the kernel and its plain PyTorch version differ only in how the
-// LayerNorm sums are grouped.
+// each 3x3 takes its taps in the plain version's order k = 3(dc+1)+(dp+1),
+// so the kernel and its plain PyTorch version differ only in rounding:
+// fused multiply-adds, where the bias enters, how the LayerNorm sums are
+// grouped, and a multiply by 1 / (C * P) for the divide.
 //
-// What bounds it on an H100: not bytes and not the FP32 rate but the
-// latency of one plane's chain. At the serving shape (B = 4 streams, 960
-// planes of 64 x 36 f32) the bound is about 7.4 us (operations; the
-// 17.7 MB of planes in and out take 5.3 us), yet a plane is a chain of 8
-// convolutions and 9 plane-wide reductions, each waiting on the one
-// before it. A design with one CTA a plane waits on that chain 960 times
-// in three waves, with little work between its barriers.
+// What bounds it on an H100: not bytes and not the FP32 rate. At the
+// serving shape (B = 4 streams, 960 planes of 64 x 36 f32) the bound is
+// about 7.4 us (operations; the 17.7 MB of planes in and out take 5.3 us),
+// but a plane is a chain of 8 convolutions and 9 plane-wide reductions,
+// each waiting on the one before it. A design with one CTA a plane waits
+// on that chain 960 times in three waves, with little work between its
+// barriers. With the chain in one wave, what is left is the SM's issue
+// slots and its shared-memory / L1 data path, both about half used: the
+// 3x3's shared reads, the writes that publish each plane, and the
+// LayerNorm parameters, whose reads touch about 2.5 cache lines a warp
+// where one would do, since a warp's points straddle rows of 36.
 //
 // What the design does about it:
 // - One CTA takes the planes of one anchor from G streams (G in 1, 2, 4,
 //   chosen by ops/router_chain.py::router_plan so that one wave holds the
 //   tick): every barrier and every reduction serves G planes, the
 //   anchor's 72 taps and 8 biases are loaded once into shared memory and
-//   read as broadcasts, and each LayerNorm parameter a thread loads
-//   serves G planes. At B = 4 that is 240 CTAs, one wave at 2 CTAs an SM.
+//   read as 16-byte broadcasts, and each LayerNorm parameter a thread
+//   loads serves G planes. At B = 4 that is 240 CTAs, one wave at 2 CTAs
+//   an SM.
 // - A thread owns a strip of R = 8 channels at one point (288 threads for
-//   64 x 36) and keeps its strip of the residual x and of the block's
-//   value in registers. The 3x3 reads its neighbours from a shared plane
-//   laid out [C+2][P+2] with a zero halo, written once: no divide and no
-//   bounds test; each value read feeds up to three taps of the strip
-//   ((R+2) x 3 reads for 9R multiply-adds). One plane a stream suffices:
-//   a LayerNorm's barrier also ends every read of the plane before it is
-//   overwritten.
-// - Each LayerNorm takes one barrier: warps reduce their 2G partial sums
-//   with shuffles, lane 0 writes them to a buffer double-buffered by the
-//   LayerNorm's parity, and after the barrier every thread sums the
-//   warps' partials in the same fixed order, so every thread holds the
-//   same statistics and two calls give the same bits. The LayerNorm's
-//   scale and bias loads are issued before the reduction.
-// - C and P are template parameters for the path's shape (64, 36); other
-//   shapes run the same kernel with C and P at run time.
+//   64 x 36) and holds the strips of the plane being worked on in
+//   registers (and x, the residual, too where registers allow: G <= 2).
+//   Two shared planes a stream, x and the block's middle value, have a
+//   zero halo (channels -1 and C, points -1 and P) written once, so the
+//   3x3 has no divide and no bounds test: it takes the strip's own column
+//   from registers and the two neighbouring columns and the rows above and
+//   below the strip from shared memory, 2R + 6 reads for 9R multiply-adds.
+//   A gap after every strip of rows keeps each warp's reads and writes free
+//   of bank conflicts. A LayerNorm's barrier also ends every read of the
+//   plane that is written next.
+// - Each LayerNorm takes one barrier: a warp reduces its 2G sums with a
+//   halving butterfly, writes them to a buffer double-buffered by the
+//   LayerNorm's parity, and after the barrier every warp sums the warps'
+//   partials in one fixed order, so every thread holds the same
+//   statistics and two calls give the same bits. Each LayerNorm's scale
+//   and bias are loaded right after the one before it.
+// - C, P and the block count are template parameters for the path's shape
+//   (64 x 36, 4 blocks), so the chain unrolls; other shapes run the same
+//   kernel with them at run time.
 
 #include <cuda_runtime.h>
 
@@ -138,24 +148,16 @@ __device__ __forceinline__ void layer_norm(float (&v)[kG][kR],
     part += __shfl_xor_sync(kAll, part, off);
   if (lane % L == 0) red[(threadIdx.x >> 5) * V + lane / L] = part;
   __syncthreads();
+  // the lanes of value k add it over warps k % L, k % L + L, ..., then
+  // every lane fetches the 2G totals
+  float tot = 0.f;
+  for (int w = lane % L; w < n_warps; w += L) tot += red[w * V + lane / L];
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    tot += __shfl_xor_sync(kAll, tot, off);
   float sum[V];
-  if constexpr (kG == 1) {  // one plane: a short chain of broadcast reads
-    sum[0] = sum[1] = 0.f;
 #pragma unroll
-    for (int w = 0; w < n_warps; ++w) {
-      const float2 q2 = reinterpret_cast<const float2*>(red)[w];
-      sum[0] += q2.x;
-      sum[1] += q2.y;
-    }
-  } else {  // the lanes of value k add it over warps k % L, k % L + L, ...
-    float tot = 0.f;
-    for (int w = lane % L; w < n_warps; w += L) tot += red[w * V + lane / L];
-#pragma unroll
-    for (int off = L / 2; off > 0; off >>= 1)
-      tot += __shfl_xor_sync(kAll, tot, off);
-#pragma unroll
-    for (int k = 0; k < V; ++k) sum[k] = __shfl_sync(kAll, tot, k * L);
-  }
+  for (int k = 0; k < V; ++k) sum[k] = __shfl_sync(kAll, tot, k * L);
 #pragma unroll
   for (int g = 0; g < kG; ++g) {
     const float mean = sum[2 * g] * inv_cp;
@@ -187,7 +189,7 @@ __device__ __forceinline__ void conv3x3(float (&v)[kG][kR],
     const float* src = s_pl + g * plane + at;
     float acc[kR];
 #pragma unroll
-    for (int i = 0; i < kR; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kR; ++i) acc[i] = b;
 #pragma unroll
     for (int rr = 0; rr < kR + 2; ++rr) {  // input channel strip*kR - 1 + rr
       const int row = (rr - 1) * h.W + (rr == 0 ? -h.pad : 0) +
@@ -207,7 +209,7 @@ __device__ __forceinline__ void conv3x3(float (&v)[kG][kR],
       }
     }
 #pragma unroll
-    for (int i = 0; i < kR; ++i) v[g][i] = acc[i] + b;
+    for (int i = 0; i < kR; ++i) v[g][i] = acc[i];
   }
 }
 
@@ -222,16 +224,19 @@ __device__ __forceinline__ void publish(const float (&v)[kG][kR],
     for (int r = 0; r < kR; ++r) s_pl[g * plane + at + r * W] = v[g][r];
 }
 
-// kC = kP = 0: C and P at run time, up to kMaxThreads threads.
-template <int kC, int kP, int kG>
+// kC = kP = kB = 0: C, P and the block count at run time, up to
+// kMaxThreads threads.
+template <int kC, int kP, int kB, int kG>
 __global__ void __launch_bounds__(kC > 0 ? cta_threads(kC, kP) : kMaxThreads,
                                   kC > 0 ? 2 : 1)
 router_chain_kernel(const float* __restrict__ x,
                     const float* __restrict__ taps,
                     const float* __restrict__ bias,
                     const float* __restrict__ lnp, float* __restrict__ out,
-                    int n_streams, int A, int c_rt, int p_rt, int blocks) {
+                    int n_streams, int A, int c_rt, int p_rt,
+                    int blocks_rt) {
   const int C = kC > 0 ? kC : c_rt;
+  const int blocks = kB > 0 ? kB : blocks_rt;
   const int P = kP > 0 ? kP : p_rt;
   const HaloPlane h(P);
   const int plane = h.floats(C), cp = C * P;
@@ -297,6 +302,7 @@ router_chain_kernel(const float* __restrict__ x,
 
   // xr holds the thread's strips of the plane the next 3x3 reads; x
   // itself lives in s_x from here on
+#pragma unroll
   for (int blk = 0; blk < blocks; ++blk) {
     const float* ln = lnp + (size_t)(2 + 4 * blk) * cp;
     conv3x3(xr, s_x, plane, at, h, s_k + 2 * blk * kTapStride);
@@ -340,7 +346,7 @@ router_chain_kernel(const float* __restrict__ x,
   }
 }
 
-template <int kC, int kP, int kG>
+template <int kC, int kP, int kB, int kG>
 int launch(const float* x, const float* taps, const float* bias,
            const float* lnp, float* out, int n_streams, int A, int C, int P,
            int blocks, cudaStream_t stream) {
@@ -351,29 +357,29 @@ int launch(const float* x, const float* taps, const float* bias,
                       sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        router_chain_kernel<kC, kP, kG>,
+        router_chain_kernel<kC, kP, kB, kG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(A, (n_streams + kG - 1) / kG);
-  router_chain_kernel<kC, kP, kG><<<grid, threads, smem, stream>>>(
+  router_chain_kernel<kC, kP, kB, kG><<<grid, threads, smem, stream>>>(
       x, taps, bias, lnp, out, n_streams, A, C, P, blocks);
   return (int)cudaGetLastError();
 }
 
-template <int kC, int kP>
+template <int kC, int kP, int kB>
 int launch_group(const float* x, const float* taps, const float* bias,
                  const float* lnp, float* out, int n_streams, int A, int C,
                  int P, int blocks, int group, cudaStream_t s) {
   switch (group) {
     case 1:
-      return launch<kC, kP, 1>(x, taps, bias, lnp, out, n_streams, A, C, P,
+      return launch<kC, kP, kB, 1>(x, taps, bias, lnp, out, n_streams, A, C, P,
                                blocks, s);
     case 2:
-      return launch<kC, kP, 2>(x, taps, bias, lnp, out, n_streams, A, C, P,
+      return launch<kC, kP, kB, 2>(x, taps, bias, lnp, out, n_streams, A, C, P,
                                blocks, s);
     case 4:
-      return launch<kC, kP, 4>(x, taps, bias, lnp, out, n_streams, A, C, P,
+      return launch<kC, kP, kB, 4>(x, taps, bias, lnp, out, n_streams, A, C, P,
                                blocks, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -396,9 +402,9 @@ extern "C" int router_chain_launch(const float* x, const float* taps,
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (C == 64 && P == 36)
-    return launch_group<64, 36>(x, taps, bias, lnp, out, N / A, A, C, P,
+  if (C == 64 && P == 36 && blocks == 4)
+    return launch_group<64, 36, 4>(x, taps, bias, lnp, out, N / A, A, C, P,
                                 blocks, group, s);
-  return launch_group<0, 0>(x, taps, bias, lnp, out, N / A, A, C, P, blocks,
+  return launch_group<0, 0, 0>(x, taps, bias, lnp, out, N / A, A, C, P, blocks,
                             group, s);
 }
