@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from ..config import ModelConfig
+from ..device import full_f32
 from ..geometry import build_prior_embeddings
 from .dynamic_conv import DynamicConv
 from .positional import sinusoid_table
@@ -149,10 +150,11 @@ class LaneHead(nn.Module):
                   self.heads_sec, self.temporal_decoder):
             m.reset_parameters(g)
 
+    @full_f32()
     def combine_dynamic(self):
         """The collapsed (and, with ``cfg.quantize``, pre-quantized)
         DynamicConv weights of every stage: compute once per weight set,
-        outside the frame loop."""
+        outside the frame loop; float32 whatever the TF32 flags say."""
         return tuple(dyn.combine_weights() for dyn in self.dyn_heads)
 
     # -- geometry ----------------------------------------------------------

@@ -24,7 +24,6 @@ from . import _build
 STRIP = 8            # channels a kernel thread owns at its point (kR)
 GROUPS = (1, 2, 4)   # planes of one anchor a CTA: the kernel's instances
 CTAS_PER_SM = 2      # the kernel's launch bounds at the path's shape
-MAX_THREADS = 512    # a CTA of the kernel at most (C * P <= 4096)
 
 
 class RouterPlan(NamedTuple):
@@ -58,10 +57,9 @@ def cta_threads(c: int, p: int) -> int:
 def smem_bytes(c: int, p: int, group: int, blocks: int) -> int:
     """Dynamic shared memory of a CTA, as the launcher sizes it: the
     LayerNorm partials (two halves), the anchor's taps and biases (12
-    floats a conv), and two
-    zero-halo planes (x and the block's middle value) a stream, each
-    strip of STRIP rows followed by a gap that keeps warps off bank
-    conflicts."""
+    floats a conv), and two zero-halo planes (x and the block's middle
+    value) a stream, each strip of STRIP rows followed by a gap that keeps
+    warps off bank conflicts."""
     warps = cta_threads(c, p) // 32
     pad = (p - STRIP * (p + 2)) % 32
     plane = (c + 2) * (p + 2) + (c // STRIP + 1) * pad
@@ -160,10 +158,6 @@ def _chain_cuda(x, taps, bias, ln_params, blocks: int):
     if n % a:
         raise ValueError(f"router_chain kernel: {n} planes is not a "
                          f"multiple of {a} anchors")
-    if c % STRIP or cta_threads(c, p) > MAX_THREADS:
-        raise ValueError(f"router_chain kernel: a [{c}, {p}] plane needs C "
-                         f"a multiple of {STRIP} and at most {MAX_THREADS} "
-                         f"threads of one strip each")
     plan = router_plan(n, a, _sm_count(x.device), c, p)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -173,7 +167,9 @@ def _chain_cuda(x, taps, bias, ln_params, blocks: int):
                           blocks, stream, plan.group)
     if err != 0:
         raise RuntimeError(
-            f"router_chain kernel launch failed: CUDA error {err}")
+            f"router_chain kernel launch failed for [{c}, {p}] planes (the "
+            f"kernel takes C a multiple of {STRIP}, C * P <= 4096): CUDA "
+            f"error {err}")
     router_chain.launches += 1
     return out
 

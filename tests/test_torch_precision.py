@@ -53,14 +53,21 @@ def state_dict(cfg):
 
 
 def record_encoder_flags(model, seen):
-    return model.encoder.register_forward_hook(
-        lambda *_: seen.append(tf32_flags()))
+    """The flags the encoder and the DynamicConv weight collapse (run
+    when weights are loaded) compute under."""
+    model.encoder.register_forward_hook(lambda *_: seen.append(tf32_flags()))
+    for dyn in model.head.dyn_heads:
+        combine = dyn.combine_weights
+        dyn.combine_weights = lambda f=combine: (seen.append(tf32_flags()),
+                                                 f())[1]
 
 
 def run_server(cfg, seen):
-    server = StreamingServer(tcfg.Config(model=cfg), state_dict(cfg),
+    weights = state_dict(cfg)
+    server = StreamingServer(tcfg.Config(model=cfg), weights,
                              max_streams=2, memory_window=4, device="cpu")
     record_encoder_flags(server.model, seen)
+    server.update_variables(weights)
     sids = [server.attach(), server.attach()]
     for seed in (1, 2):
         server.step({s: tp.seeded_frames(seed + 10 * s, (64, 128, 3))
@@ -68,9 +75,11 @@ def run_server(cfg, seen):
 
 
 def run_pipeline(cfg, seen):
-    pipe = InferencePipeline(tcfg.Config(model=cfg), state_dict(cfg),
-                             chunk=2, device="cpu")
+    weights = state_dict(cfg)
+    pipe = InferencePipeline(tcfg.Config(model=cfg), weights, chunk=2,
+                             device="cpu")
     record_encoder_flags(pipe.model, seen)
+    pipe.update_variables(weights)
     pipe.run_video(tp.seeded_frames(3, (3, 64, 128, 3)))
 
 
