@@ -19,7 +19,7 @@
 // but a plane is a chain of 8 convolutions and 9 plane-wide reductions,
 // each waiting on the one before it. A design with one CTA a plane waits
 // on that chain 960 times in three waves, with little work between its
-// barriers. With the chain in one wave, what is left is the SM's issue
+// barriers. With the chain in one wave, what is left is the SM's instruction
 // slots and its shared-memory / L1 data path, both about half used: the
 // 3x3's shared reads, the writes that publish each plane, and the
 // LayerNorm parameters, whose reads touch about 2.5 cache lines a warp
