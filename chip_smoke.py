@@ -8,10 +8,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. the card's name and power limit, the torch and CUDA versions;
 2. the kernel build from ``phnet_torch/csrc`` (one ``nvcc`` per source, in
    parallel), with the ``ptxas`` register / shared-memory / spill report;
-3. lane NMS: the CUDA kernel against its plain PyTorch version on seeded
-   problems (bit-equal), 10 streams and then the main path's 4, both timed
-   with CUDA events (device time: calls replayed from a CUDA graph; and
-   per call from Python);
+3. lane NMS: the CUDA kernel, through both entries (``nms_keeps`` from
+   routed predictions, ``lane_nms`` from proposal rows), against their
+   plain PyTorch versions, bit-equal in every output, on 10 streams of
+   seeded and adversarial problems (tied scores, all valid, none valid,
+   fewer valid than top_k, duplicate lanes, -0.0 and NaN scores) at two
+   confidence thresholds; then the main path's 4 streams, timed with CUDA
+   events (device time: calls replayed from a CUDA graph; and per call
+   from Python, the whole NMS step: softmax and ``nms_keeps``) beside the
+   first design's numbers;
 4. the router chain: the CUDA kernel against its plain version at the
    serving shapes [B*240, 64, 36], B = 1 and 4 (max |diff| <= 1e-4, and the
    router score within 1e-4), both timed; per B the kernel's plan (planes
@@ -21,7 +26,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (seeded random weights), 4 streams, one of them skipping every third
    tick, then a detach and an attach; the kernels' launch counters are
    zeroed just before and read just after, and must show that every tick
-   went through both kernels;
+   went through both kernels (lane NMS in one launch a tick);
 6. end to end: the same weights run a 2-frame clip on the card and on the
    CPU (plain versions there): routed predictions within 1e-3, keep sets
    equal; run with cuDNN's TF32 flag on, torch's default, which the model
@@ -76,6 +81,12 @@ TPU_KERNELS = {
 # plane, two barriers a LayerNorm), from phase 4 of this script on an
 # NVIDIA H100 80GB HBM3 at 700 W: the yardstick of the present design
 K2_FIRST_DESIGN_MS = {1: 0.0364, 4: 0.1158}
+# K1's first design (a stable sort, the strip windows and the scatter in
+# eager PyTorch around a kernel that walked all 240 sorted proposals), at
+# 4 streams x 240, from phase 3 of this script on an NVIDIA H100 80GB HBM3
+# at 700 W: the kernel's device time, and the whole wrapper's time per call
+# from Python over several runs: the yardstick of the present design
+K1_FIRST_DESIGN_MS = {"kernel": 0.0177, "wrapper": (0.57, 0.80)}
 # the generator products of one VIL refine stage: (name, K, N), M = 240 x
 # streams rows
 W8_PRODUCTS = (("gen1", 64, 8192), ("gen2_a", 4608, 1024),
@@ -150,17 +161,91 @@ def bound(nbytes, ops, flops=F32_FLOPS):
                                        else "operations")
 
 
-def nms_ops(starts, ends, valid, keep):
-    """f32 operations of the greedy walk on this data: for every kept i and
-    every later valid j whose strip window overlaps, |x_i - x_j| summed
-    over the overlap (3 ops a row) and one compare."""
+NMS_KINDS = ("seeded", "tied", "all_valid", "all_invalid", "few_valid",
+             "duplicates", "neg_zero", "nan_score")
+
+
+def nms_stream(kind, seed, a=240, n_offsets=36, conf=0.6):
+    """One lane-NMS stream of one of ``NMS_KINDS``, from
+    :func:`make_problem`: routed predictions [A, 7 + O] in the VIL layout
+    (start_y; the length over n_strips; the xs over 767, an image 768
+    wide), scores [A] and the valid flags [A] of the proposals entry
+    (``scores >= conf``, and the -0.0 and NaN rows of those kinds)."""
+    p, s, _ = make_problem(seed, a, n_offsets)
+    rng = np.random.default_rng(seed + 1000)
+    forced = []  # rows valid in the proposals entry whatever their score
+
+    def far_apart(rows):  # lanes that suppress nothing
+        for n, r in enumerate(rows):
+            p[r, 5:] = 100.0 + 300.0 * n + np.arange(n_offsets)
+
+    if kind == "tied":  # scores on a grid of 1/8: many exact ties
+        s = np.round(s * 8) / 8
+    elif kind == "all_valid":
+        s = 0.6 + 0.4 * s
+    elif kind in ("all_invalid", "few_valid", "neg_zero", "nan_score"):
+        lifted, s = 0.6 + 0.4 * s, s - 1.01  # below any threshold >= 0
+        if kind == "few_valid":
+            rows = [5, a // 4, a // 4 + 1, a // 2, a - 1]
+            s[rows] = lifted[rows]
+        elif kind == "neg_zero":  # -0.0 ties a later +0.0 on the same lane
+            forced = [3, 7, 11]
+            s[forced] = -0.0, 0.0, -0.0
+            far_apart([3, 11])
+            p[7] = p[3]
+        elif kind == "nan_score":  # NaN ranks below every other score
+            forced = [2, 9, 30, 31]
+            s[forced] = np.nan, 0.7, np.nan, -np.inf
+            far_apart(forced)
+    elif kind == "duplicates":  # rows n..3n repeat rows 0..2n, scores too
+        n = a // 6
+        p[n:3 * n], s[n:3 * n] = p[0:2 * n].copy(), s[0:2 * n].copy()
+    elif kind != "seeded":
+        raise KeyError(kind)
+    routed = rng.normal(size=(a, 7 + n_offsets))
+    routed[:, 2] = p[:, 2]
+    routed[:, 5] = p[:, 4] / (n_offsets - 1)
+    routed[:, 7:] = p[:, 5:] / 767
+    s = s.astype(np.float32)
+    valid = (s >= np.float32(conf)) | np.isin(np.arange(a), forced)
+    return routed.astype(np.float32), s, valid
+
+
+def nms_batch(torch, streams, a=240, n_offsets=36, conf=0.6, device="cuda"):
+    """routed [B, A, 7 + O], scores [B, A], valid [B, A] on ``device`` for
+    streams given as (kind, seed) pairs."""
+    made = [nms_stream(k, seed, a, n_offsets, conf) for k, seed in streams]
+    return tuple(torch.from_numpy(np.stack(x)).to(device)
+                 for x in zip(*made))
+
+
+def nms_ops(routed, valid, keep_idx, n_offsets, img_w, thresh):
+    """f32 operations of the kernel's picks on this data: before each
+    pick one key compare a candidate left (the argmax); after it, against
+    every candidate left whose strip window overlaps, |x_i - x_j| summed
+    over the overlap (3 a point) and one compare."""
+    f32 = np.float32
+    n_strips = f32(n_offsets - 1)
+    start = np.trunc(routed[..., 2] * n_strips + f32(0.5)).astype(np.int64)
+    length = routed[..., 5] * n_strips
+    end = np.trunc(start.astype(f32) + length - f32(0.5)
+                   - (length - f32(1) < 0).astype(f32)).astype(np.int64)
+    end = np.minimum(end, n_offsets - 1)
+    xs = routed[..., 7:7 + n_offsets] * f32(img_w - 1)
     ops = 0
-    for b in range(starts.shape[0]):
-        for i in np.nonzero(keep[b])[0]:
-            ps = np.maximum(starts[b, i], starts[b, i + 1:])
-            pe = np.minimum(ends[b, i], ends[b, i + 1:])
-            live = (pe >= ps) & valid[b, i + 1:]
-            ops += int((3 * (pe - ps + 1) + 1)[live].sum())
+    for b in range(routed.shape[0]):
+        cand = valid[b].copy()
+        for i in keep_idx[b][keep_idx[b] >= 0]:
+            ops += int(cand.sum())
+            cand[i] = False
+            ps = np.maximum(start[b, i], start[b])
+            pe = np.minimum(end[b, i], end[b])
+            for j in np.nonzero(cand & (pe >= ps))[0]:
+                ops += 3 * int(pe[j] - ps[j] + 1) + 1
+                lo, hi = max(ps[j], 0), pe[j] + 1
+                dist = np.abs(xs[b, i, lo:hi] - xs[b, j, lo:hi]).sum()
+                if dist < thresh * (pe[j] - ps[j] + 1):
+                    cand[j] = False
     return ops
 
 
@@ -205,48 +290,76 @@ def phase_build():
 
 
 def phase_nms(torch, card):
-    """K1 against its plain version: 8 seeded streams plus an all-invalid
-    and an all-valid one, then the main path's shape (4 streams). Returns
-    the numbers of the main path's shape."""
+    """K1 through both entries against their plain versions: 10 streams of
+    every kind at two confidence thresholds, all four outputs bit-equal;
+    then the main path's shape (4 seeded streams, the model's softmax
+    scores), timed. Returns the numbers of the main path's shape."""
+    from phnet_torch.config import LaneSpec
     from phnet_torch.ops import nms as tnms
 
-    dev = torch.device("cuda")
-    probs = [make_problem(seed) for seed in range(8)]
-    p, s, _ = make_problem(8)
-    probs += [(p, s, np.zeros_like(s, bool)), (p, s, np.ones_like(s, bool))]
-    thresh, n_off, top_k = 50.0, 36, 8
-    for streams in (probs, probs[:4]):
-        args = [torch.from_numpy(np.stack([q[i] for q in streams])).to(dev)
-                for i in range(3)]
-        got = tnms.lane_nms(*args, thresh, n_offsets=n_off, top_k=top_k)
+    a, n_off, img_w, thresh, top_k = 240, 36, 768, 50.0, 8
+    spec = LaneSpec(n_offsets=n_off)
+    streams = [(kind, seed) for seed, kind in enumerate(NMS_KINDS)]
+    streams += [("seeded", 8), ("seeded", 9)]
+
+    def check(routed, scores, valid, conf):
+        got = tnms.nms_keeps(routed, scores, spec, img_w, conf, thresh,
+                             top_k)
+        ref = tnms.nms_keeps_plain(routed, scores, spec, img_w, conf,
+                                   thresh, top_k)
+        props = tnms.nms_proposals_from_predictions(routed, spec, img_w)
+        got += tnms.lane_nms(props, scores, valid, thresh, n_off, top_k)
+        ref += tnms.lane_nms_plain(props, scores, valid, thresh, n_off,
+                                   top_k)
         torch.cuda.synchronize()
-        ref = tnms.lane_nms_plain(*args, thresh, n_offsets=n_off,
-                                  top_k=top_k)
-        for name, g, r in zip(("keep_idx", "num_kept", "keep_mask"), got,
-                              ref):
+        names = ("kept", "keep_idx", "num_kept", "keep_mask")
+        names += tuple(f"lane_nms {n}" for n in names[1:])
+        for name, g, r in zip(names, got, ref):
             if not torch.equal(g, r):
-                raise AssertionError(f"lane_nms kernel {name} differs from "
-                                     f"the plain version")
-        _, starts, ends, xs, valid = tnms._sorted_problem(*args, n_off)
-        kernel = lambda: tnms._greedy_cuda(  # noqa: E731
-            starts, ends, xs, valid, thresh, top_k)
-        plain = lambda: tnms._greedy_plain(  # noqa: E731
-            starts, ends, xs, valid, thresh, top_k)
-        ms, plain_ms = device_ms(torch, kernel), device_ms(torch, plain)
-        call_ms = time_ms(torch, kernel)
-        wrapper_ms = time_ms(torch, lambda: tnms.lane_nms(
-            *args, thresh, n_offsets=n_off, top_k=top_k))
-        b, a = starts.shape
-        nbytes = 4 * b * a * (n_off + 4)  # starts, ends, valid, xs; keep
-        ops = nms_ops(starts.cpu().numpy(), ends.cpu().numpy(),
-                      valid.cpu().numpy(), kernel().cpu().numpy())
-        bound_ms, bound_by = bound(nbytes, ops)
-        print(f"[lane_nms] {b} streams x {a}: bit-equal to plain; kept "
-              f"{got[1].tolist()}; device time: kernel {ms:.4f} ms, plain "
-              f"walk {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-              f"({bound_by}); per call from Python: kernel {call_ms:.4f} "
-              f"ms, whole wrapper (sort + kernel + scatter) "
-              f"{wrapper_ms:.4f} ms [{card}]")
+                raise AssertionError(f"lane_nms kernel: {name} differs from "
+                                     f"the plain version (conf {conf})")
+        return got[2]
+
+    for conf in (0.6, 0.0):
+        num = check(*nms_batch(torch, streams, a, n_off, conf), conf)
+        print(f"[lane_nms] {len(streams)} streams x {a} ({', '.join(NMS_KINDS)}"
+              f", seeded x 2), conf {conf}: both entries bit-equal to plain "
+              f"in every output; kept {num.tolist()}")
+
+    routed = nms_batch(torch, [("seeded", s) for s in range(4)])[0]
+    conf = 0.6
+    scores = torch.softmax(routed[..., :2], dim=-1)[..., 1]  # a view
+    valid = scores >= conf
+    check(routed, scores, valid, conf)
+    args = (routed, scores, spec, img_w, conf, thresh, top_k)
+    kernel = lambda: tnms.nms_keeps(*args)  # noqa: E731
+    plain = lambda: tnms.nms_keeps_plain(*args)  # noqa: E731
+    props = tnms.nms_proposals_from_predictions(routed, spec, img_w)
+    ms, plain_ms = device_ms(torch, kernel), device_ms(torch, plain)
+    entry_ms = device_ms(torch, lambda: tnms.lane_nms(
+        props, scores, valid, thresh, n_off, top_k))
+    call_ms = time_ms(torch, kernel)
+    step_ms = time_ms(torch, lambda: tnms.nms_keeps(
+        routed, torch.softmax(routed[..., :2], dim=-1)[..., 1], spec, img_w,
+        conf, thresh, top_k))
+    _, keep_idx, num_kept, _ = kernel()
+    b, _, dim = routed.shape
+    nbytes = (4 * b * a * (dim + 1)  # routed, scores
+              + 4 * b * top_k * dim + 8 * b * top_k + 8 * b + b * a)
+    ops = nms_ops(routed.cpu().numpy(), valid.cpu().numpy(),
+                  keep_idx.cpu().numpy(), n_off, img_w, thresh)
+    bound_ms, bound_by = bound(nbytes, ops)
+    first = K1_FIRST_DESIGN_MS
+    print(f"[lane_nms] {b} streams x {a} (the main path's shape, softmax "
+          f"scores): bit-equal to plain; kept {num_kept.tolist()}; device "
+          f"time: kernel {ms:.4f} ms (first design {first['kernel']} ms, "
+          f"{first['kernel'] / ms:.2f}x), proposals entry {entry_ms:.4f} ms,"
+          f" plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+          f"{nbytes} B, {ops} ops; the kernel at {bound_ms / ms:.4f} of it);"
+          f" per call from Python: NMS step (softmax + nms_keeps) "
+          f"{step_ms:.4f} ms, nms_keeps {call_ms:.4f} ms (first design's "
+          f"whole wrapper {first['wrapper'][0]}-{first['wrapper'][1]} ms) "
+          f"[{card}]")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -476,10 +589,11 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
         raise AssertionError("non-finite kept rows")
     if not (server.memory.values.isfinite().all()):
         raise AssertionError("non-finite memory")
-    if k1 < n_ticks or k2 < 3 * n_ticks:
+    if k1 != n_ticks or k2 < 3 * n_ticks:
         raise AssertionError(f"kernel launches lane_nms {k1}, router_chain "
                              f"{k2} over {n_ticks} ticks: the main path did "
-                             f"not go through both kernels")
+                             f"not go through both kernels (lane NMS once a "
+                             f"tick)")
     per_tick = 4 * mcfg.head.refine_layers  # generator products a tick
     w8_ok = k3 >= per_tick * n_ticks if quantize == "w8" else k3 == 0
     if not w8_ok:

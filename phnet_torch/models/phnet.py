@@ -17,7 +17,7 @@ import torch.nn as nn
 
 from ..config import ModelConfig
 from ..device import full_f32, resolve_device
-from ..ops.nms import lane_nms, nms_proposals_from_predictions
+from ..ops.nms import nms_keeps
 from .encoder import Encoder
 from .head import HeadOutputs, LaneHead
 
@@ -121,18 +121,14 @@ class PHNet(nn.Module):
                      for f in feats)
 
     def nms_keeps(self, routed: torch.Tensor):
-        """Confidence filter + lane NMS on routed predictions [B, A, dim].
+        """Confidence filter + lane NMS on routed predictions [B, A, dim]
+        (one softmax and one kernel launch on the card).
         Returns (kept [B, topk, dim], keep_idx [B, topk], num_kept [B])."""
-        cfg, spec = self.cfg, self.cfg.lane
+        cfg = self.cfg
         scores = torch.softmax(routed[..., :2], dim=-1)[..., 1]
-        valid = scores >= cfg.test.conf_threshold
-        props = nms_proposals_from_predictions(routed, spec, cfg.img_w)
-        keep_idx, num_kept, _ = lane_nms(
-            props, scores, valid, cfg.test.nms_thres,
-            n_offsets=spec.n_offsets, top_k=cfg.test.nms_topk)
-        gather_idx = keep_idx.clamp(0, routed.shape[1] - 1)
-        kept = torch.gather(
-            routed, 1, gather_idx[..., None].expand(-1, -1, routed.shape[-1]))
+        kept, keep_idx, num_kept, _ = nms_keeps(
+            routed, scores, cfg.lane, cfg.img_w, cfg.test.conf_threshold,
+            cfg.test.nms_thres, cfg.test.nms_topk)
         return kept, keep_idx, num_kept
 
     @full_f32()

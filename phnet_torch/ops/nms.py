@@ -1,7 +1,8 @@
 """Row-wise lane NMS, batched over streams.
 
 Port of ``phnet_tpu/ops/nms.py`` (``nms_proposals_from_predictions``,
-``lane_nms``) and of ``phnet_tpu/ops/nms_pallas.py::lane_nms_pallas``.
+``lane_nms``), of ``phnet_tpu/ops/nms_pallas.py::lane_nms_pallas`` and of
+the keeps of ``PHNet._nms_keeps`` (``phnet_tpu/models/phnet.py``).
 
 Suppression predicate (the reference's ``nms_kernel.cu`` ``devIoU``): for
 proposals a, b with ``start = trunc(start_y * n_strips + .5)`` and the
@@ -12,17 +13,19 @@ The greedy pass walks the proposals by descending score (stable sort,
 invalid rows last), keeps a valid unsuppressed proposal while fewer than
 ``top_k`` are kept, and suppresses with it.
 
-:func:`lane_nms` is the wrapper: it sorts, computes the strip windows and
-scatters the keeps back, and runs the greedy walk in the CUDA kernel
-``csrc/lane_nms.cu`` for CUDA tensors, or in :func:`lane_nms_plain`'s
-PyTorch walk for CPU tensors.
+Two entries, both one launch of the CUDA kernel ``csrc/lane_nms.cu`` for
+CUDA tensors and their plain PyTorch version for CPU tensors:
+:func:`nms_keeps` goes from routed predictions to the kept rows (the
+model's path), :func:`lane_nms` from proposal rows to the keeps. The
+kernel picks by block argmax instead of sorting and walking; it keeps the
+same proposals (see the note in its source).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -108,40 +111,116 @@ def _greedy_plain(starts, ends, xs, valid, thresh: float, top_k: int):
     return keep
 
 
+def lane_nms_plain(proposals, scores, valid, thresh: float, n_offsets: int,
+                   top_k: int):
+    """The plain PyTorch version of :func:`lane_nms`, on any device: sort,
+    strip windows, the greedy walk, scatter."""
+    order, starts, ends, xs, vs = _sorted_problem(proposals, scores, valid,
+                                                  n_offsets)
+    keep_sorted = _greedy_plain(starts, ends, xs, vs, thresh, top_k)
+    return _scatter_keeps(keep_sorted, order, top_k)
+
+
+def nms_keeps_plain(routed: torch.Tensor, scores: torch.Tensor,
+                    spec: LaneSpec, img_w: int, conf_threshold: float,
+                    thresh: float, top_k: int):
+    """The plain PyTorch version of :func:`nms_keeps`, on any device: the
+    confidence filter, :func:`nms_proposals_from_predictions`,
+    :func:`lane_nms_plain` and the gather of the kept rows."""
+    valid = scores >= conf_threshold
+    props = nms_proposals_from_predictions(routed, spec, img_w)
+    keep_idx, num_kept, keep_mask = lane_nms_plain(
+        props, scores, valid, thresh, spec.n_offsets, top_k)
+    gather_idx = keep_idx.clamp(0, routed.shape[1] - 1)
+    kept = torch.gather(
+        routed, 1, gather_idx[..., None].expand(-1, -1, routed.shape[-1]))
+    return kept, keep_idx, num_kept, keep_mask
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("lane_nms").lane_nms_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+    p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
+    fn.argtypes = [p, p, q, q, p, p, p, p, p, i, i, i, i, i, i, i, f, f, f,
+                   f, i, p]
     fn.restype = i
     return fn
 
 
-def _greedy_cuda(starts, ends, xs, valid, thresh: float, top_k: int):
-    """Launch ``csrc/lane_nms.cu`` on the current stream."""
-    b, a, o = xs.shape
-    valid_i = valid.to(torch.int32)
-    for name, t, dt in (("starts", starts, torch.int32),
-                        ("ends", ends, torch.int32),
-                        ("xs", xs, torch.float32),
-                        ("valid", valid_i, torch.int32)):
-        if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"lane_nms kernel: {name} must be a contiguous "
-                             f"CUDA {dt} tensor, got {t.dtype} on "
-                             f"{t.device}")
+def _nms_cuda(rows, scores, valid: Optional[torch.Tensor], cols,
+              n_offsets: int, xs_scale: float, len_scale: float,
+              conf_threshold: float, thresh: float, top_k: int,
+              gather: bool):
+    """One launch of ``csrc/lane_nms.cu`` on the current stream. ``cols``
+    are the columns of start_y, length and the first x in ``rows``; a
+    ``valid`` of None means ``scores >= conf_threshold``. Returns
+    (kept or None, keep_idx, num_kept, keep_mask)."""
+    if rows.dim() != 3:
+        raise ValueError(f"lane_nms kernel: rows must be [B, A, dim], got "
+                         f"{tuple(rows.shape)}")
+    b, a, dim = rows.shape
+    given = {"rows": (rows, torch.float32), "scores": (scores, torch.float32)}
+    if valid is not None:
+        given["valid"] = (valid, torch.bool)
+    for name, (t, dt) in given.items():
+        if t.device != rows.device or t.dtype != dt:
+            raise ValueError(f"lane_nms kernel: {name} must be a {dt} tensor "
+                             f"on {rows.device}, got {t.dtype} on {t.device}")
         if t.shape[:2] != (b, a):
             raise ValueError(f"lane_nms kernel: {name} has shape "
                              f"{tuple(t.shape)}, expected [{b}, {a}, ...]")
-    keep = torch.empty((b, a), dtype=torch.int32, device=xs.device)
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
-        err = _launcher()(starts.data_ptr(), ends.data_ptr(), xs.data_ptr(),
-                          valid_i.data_ptr(), keep.data_ptr(), b, a, o,
-                          int(top_k), float(thresh), stream)
+    if not (rows.is_cuda and rows.is_contiguous()):
+        raise ValueError("lane_nms kernel: rows must be a contiguous CUDA "
+                         "tensor")
+    if valid is not None and not valid.is_contiguous():
+        raise ValueError("lane_nms kernel: valid must be contiguous")
+    dev = rows.device
+    kept = (torch.empty((b, top_k, dim), dtype=torch.float32, device=dev)
+            if gather else None)
+    keep_idx = torch.empty((b, top_k), dtype=torch.long, device=dev)
+    num_kept = torch.empty(b, dtype=torch.long, device=dev)
+    keep_mask = torch.empty((b, a), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launcher()(
+            rows.data_ptr(), scores.data_ptr(), scores.stride(0),
+            scores.stride(1), None if valid is None else valid.data_ptr(),
+            None if kept is None else kept.data_ptr(), keep_idx.data_ptr(),
+            num_kept.data_ptr(), keep_mask.data_ptr(), b, a, dim, *cols,
+            n_offsets, xs_scale, len_scale, conf_threshold, thresh, top_k,
+            stream)
     if err != 0:
-        raise RuntimeError(f"lane_nms kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"lane_nms kernel launch failed for {a} rows of {dim} (columns "
+            f"{cols}, {n_offsets} offsets; the kernel takes at most 8192 "
+            f"rows and the shared memory of one SM): CUDA error {err}")
     lane_nms.launches += 1
-    return keep.bool()
+    return kept, keep_idx, num_kept, keep_mask
+
+
+def nms_keeps(routed: torch.Tensor, scores: torch.Tensor, spec: LaneSpec,
+              img_w: int, conf_threshold: float, thresh: float,
+              top_k: int):
+    """Confidence filter, lane NMS and the kept rows, from routed
+    predictions [B, A, spec.dim] and their scores [B, A] (the softmax's
+    positive class; any strides).
+
+    Returns kept [B, top_k, dim] (the routed rows of the keeps; empty
+    slots hold row 0), keep_idx [B, top_k] (descending score, padded with
+    -1), num_kept [B] and keep_mask [B, A]. CUDA tensors run the kernel
+    ``csrc/lane_nms.cu`` in one launch; CPU tensors run
+    :func:`nms_keeps_plain`."""
+    if routed.is_cuda:
+        return _nms_cuda(
+            routed, scores, None,
+            (spec.col_start_y, spec.col_length, spec.col_xs),
+            spec.n_offsets, float(img_w - 1), float(spec.n_strips),
+            conf_threshold, thresh, top_k, gather=True)
+    if routed.device.type == "cpu":
+        return nms_keeps_plain(routed, scores, spec, img_w, conf_threshold,
+                               thresh, top_k)
+    raise ValueError(f"nms_keeps: unsupported device {routed.device}")
 
 
 def lane_nms(proposals: torch.Tensor, scores: torch.Tensor,
@@ -154,26 +233,18 @@ def lane_nms(proposals: torch.Tensor, scores: torch.Tensor,
     bool (invalid rows are never kept and suppress nothing).
     Returns keep_idx [B, top_k] (original order, padded with -1),
     num_kept [B] and keep_mask [B, A]. CUDA tensors run the kernel
-    ``csrc/lane_nms.cu``; CPU tensors run :func:`lane_nms_plain`'s walk.
+    ``csrc/lane_nms.cu`` (columns 2, 4 and 5, unscaled); CPU tensors run
+    :func:`lane_nms_plain`.
     """
-    order, starts, ends, xs, vs = _sorted_problem(proposals, scores, valid,
-                                                  n_offsets)
-    if xs.is_cuda:
-        keep_sorted = _greedy_cuda(starts, ends, xs, vs, thresh, top_k)
-    elif xs.device.type == "cpu":
-        keep_sorted = _greedy_plain(starts, ends, xs, vs, thresh, top_k)
-    else:
-        raise ValueError(f"lane_nms: unsupported device {xs.device}")
-    return _scatter_keeps(keep_sorted, order, top_k)
+    if proposals.is_cuda:
+        return _nms_cuda(proposals, scores, valid.contiguous(), (2, 4, 5),
+                         n_offsets, 1.0, 1.0, 0.0, thresh, top_k,
+                         gather=False)[1:]
+    if proposals.device.type == "cpu":
+        return lane_nms_plain(proposals, scores, valid, thresh, n_offsets,
+                              top_k)
+    raise ValueError(f"lane_nms: unsupported device {proposals.device}")
 
 
-lane_nms.launches = 0  # kernel launches, counted where the kernel launches
-
-
-def lane_nms_plain(proposals, scores, valid, thresh: float, n_offsets: int,
-                   top_k: int):
-    """The plain PyTorch version of :func:`lane_nms`, on any device."""
-    order, starts, ends, xs, vs = _sorted_problem(proposals, scores, valid,
-                                                  n_offsets)
-    keep_sorted = _greedy_plain(starts, ends, xs, vs, thresh, top_k)
-    return _scatter_keeps(keep_sorted, order, top_k)
+lane_nms.launches = 0  # kernel launches of both entries, counted where the
+# kernel launches

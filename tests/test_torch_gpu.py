@@ -53,6 +53,94 @@ def test_lane_nms_kernel_bit_equal_to_plain(cuda):
         assert torch.equal(g.cpu(), r.cpu())
 
 
+NMS_SHAPES = [  # (streams, A, n_offsets, first kind of chip_smoke.NMS_KINDS)
+    (1, 240, 36, 0), (1, 240, 36, 6), (4, 240, 36, 4), (8, 240, 36, 0),
+    (10, 240, 36, 2),               # the path's shape; every kind
+    (4, 32, 12, 0), (8, 32, 12, 0),  # A and O at run time
+]
+
+
+def nms_problem(cuda, streams, a, n_offsets, first, conf):
+    """``streams`` streams of chip_smoke.NMS_KINDS in turn from ``first``:
+    routed [B, A, 7 + O], scores [B, A] as a strided view (the model's
+    softmax column is one), valid [B, A]."""
+    import chip_smoke
+
+    kinds = chip_smoke.NMS_KINDS
+    routed, scores, valid = chip_smoke.nms_batch(
+        torch, [(kinds[(first + i) % len(kinds)], 10 * streams + i)
+                for i in range(streams)], a, n_offsets, conf, cuda)
+    scores = torch.stack([torch.zeros_like(scores), scores], -1)[..., 1]
+    return routed, scores, valid
+
+
+@pytest.mark.parametrize("conf", [0.6, 0.0])
+@pytest.mark.parametrize("streams,a,n_offsets,first", NMS_SHAPES)
+def test_nms_keeps_kernel_bit_equal_to_plain(cuda, streams, a, n_offsets,
+                                             first, conf):
+    """The kernel through both entries against the plain versions on the
+    card, every output bit-equal, on seeded and adversarial streams (tied
+    scores, all valid, none valid, fewer valid than top_k, duplicate
+    lanes, -0.0 and NaN scores); one launch a call, and a second call
+    gives the same bits."""
+    from phnet_torch.config import LaneSpec
+
+    spec = LaneSpec(n_offsets=n_offsets)
+    routed, scores, valid = nms_problem(cuda, streams, a, n_offsets, first,
+                                        conf)
+    args = (routed, scores, spec, 768, conf, 50.0, 8)
+    launches = tnms.lane_nms.launches
+    got = tnms.nms_keeps(*args)
+    torch.cuda.synchronize()
+    assert tnms.lane_nms.launches == launches + 1
+    ref = tnms.nms_keeps_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    again = tnms.nms_keeps(*args)
+    assert all(torch.equal(g, r) for g, r in zip(again, got))
+
+    props = tnms.nms_proposals_from_predictions(routed, spec, 768)
+    nms_args = (props, scores, valid, 50.0, n_offsets, 8)
+    got = tnms.lane_nms(*nms_args)
+    torch.cuda.synchronize()
+    assert tnms.lane_nms.launches == launches + 3
+    for g, r in zip(got, tnms.lane_nms_plain(*nms_args)):
+        assert torch.equal(g, r)
+
+
+def test_nms_keeps_kernel_in_cuda_graph(cuda):
+    """The call captured in a CUDA graph: replayed on the captured inputs,
+    and on new inputs copied into them, it equals the eager call."""
+    from phnet_torch.config import LaneSpec
+
+    spec = LaneSpec(n_offsets=36)
+    routed, scores, _ = nms_problem(cuda, 4, 240, 36, 0, 0.6)
+    routed2, scores2, _ = nms_problem(cuda, 4, 240, 36, 4, 0.6)
+
+    def call(r, s):
+        return tnms.nms_keeps(r, s, spec, 768, 0.6, 50.0, 8)
+
+    want, want2 = call(routed, scores), call(routed2, scores2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(routed, scores)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    launches = tnms.lane_nms.launches
+    with torch.cuda.graph(graph):
+        out = call(routed, scores)
+    assert tnms.lane_nms.launches == launches + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, r) for g, r in zip(out, want))
+    routed.copy_(routed2)
+    scores.copy_(scores2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, r) for g, r in zip(out, want2))
+
+
 @pytest.mark.parametrize("streams,a,c,p", [
     (1, 240, 64, 36), (2, 240, 64, 36), (3, 240, 64, 36), (4, 240, 64, 36),
     (8, 240, 64, 36),               # the path's shape; B=3 a partial group
