@@ -45,12 +45,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    :func:`phase_end_to_end`);
 10. the clip pipeline: ``InferencePipeline`` with the w8 model over two
     seeded 6-frame clips in chunks of 4, emitting ``.lines.txt`` files;
-    the counters must show every frame going through all three kernels.
+    the counters must show every frame going through all three kernels;
+11. training, card against CPU: the full-width model (seeded weights,
+    decoder dropout 0), one synthetic clip of 4 frames, one training step
+    on the card and one on the CPU, with cuDNN's TF32 flag on (the step
+    must turn it off itself): loss, gradient norm and a sample of gradient
+    leaves within bounds taken from the CPU's own spread under a 1e-6
+    relative perturbation of the frames, and the Hungarian matches of both
+    branches equal (or no more flips than the perturbed CPU run shows);
+12. training throughput: the full-width model, 16-frame clips, B = 1 and
+    4, dropout 0.1, 2 warm-up and 5 timed steps on a fixed batch: step
+    wall p50, clip-frames/s, device ms (CUDA events), peak memory, K2
+    launches a step (3 a frame forward, again in the remat backward: the
+    counter must read exactly that, and K1 and K3 none), then one step
+    under ``torch.profiler`` for launches a step, busy share and the
+    Hungarian solve's and K2's device ms; the loss finite and lower at
+    step 5 than at step 1;
+13. the trainer: ``phnet_torch.train.trainer.train`` for one epoch of 2
+    steps on 2 synthetic 4-frame videos into a temporary directory, then
+    resumed for a second epoch: both epochs' losses finite, and the resume
+    restores step, epoch and the curriculum's ``max_skip``.
 
 Float32 throughout outside the quantized products. The model turns TF32
 off itself (``phnet_torch.device.full_f32``); the script also turns it off
 for the plain versions it holds the kernels against. The line before the last holds one JSON
-object per kernel; the last line is ``{"ok": true, "device": {...}}``.
+object per kernel (K2's with its launches in a training step beside its
+serving launches); the last line is ``{"ok": true, "device": {...}}``.
 Without a card, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -762,6 +782,324 @@ def phase_pipeline(torch, card, state_dict, quantize="w8", clips=2,
     return {"lane_nms": k1, "router_chain": k2, "w8_matmul": k3}
 
 
+TRAIN_LEAVES = (  # gradient leaves held card against CPU, one a layer
+    "encoder.backbone.conv0.weight", "encoder.backbone.bn0.weight",
+    "encoder.neck.fpn.0.weight", "head.prior_embeddings",
+    "head.routers.0.taps", "head.routers.2.ln_params",
+    "head.routers.1.dense0.weight", "head.dyn_heads.1.gen2_a.weight",
+    "head.dyn_heads.2.gen1_b.weight",
+    "head.temporal_decoder.layers.1.ffn2.weight",
+    "head.heads_sec.out1_kernel", "head.heads_fir.fc0_kernel")
+PROFILE_RANGES = ("hungarian_assign", "router_chain_backward")
+
+
+def train_config(dropout, **train):
+    from phnet_torch.config import vil100_config
+
+    cfg = vil100_config()
+    head = dataclasses.replace(cfg.model.head, decoder_dropout=dropout)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, head=head),
+        train=dataclasses.replace(cfg.train, **train))
+
+
+def synthetic_batch(torch, cfg, clips, frames_per_clip, seed=1):
+    """Seeded synthetic clips at the model's size, on the CPU:
+    frames [B, T, H, W, 3], labels [B, T, L, dim]."""
+    from phnet_torch.data import SyntheticVideoDataset, collate_clips
+
+    m = cfg.model
+    ds = SyntheticVideoDataset(n_videos=clips,
+                               frames_per_video=frames_per_clip,
+                               img_h=m.img_h, img_w=m.img_w, spec=m.lane,
+                               max_lanes=m.max_lanes, seed=seed)
+    batch = collate_clips([ds[i] for i in range(clips)])
+    return (torch.from_numpy(batch["frames"]),
+            torch.from_numpy(batch["labels"]))
+
+
+def grad_run(torch, cfg, frames, labels, device):
+    """One training step from the seeded weights on ``device``: forward,
+    criterion, backward (inside ``full_f32``), update. Returns the loss,
+    the gradient norm, the matches and the sampled gradient leaves."""
+    from phnet_torch.device import full_f32
+    from phnet_torch.losses import LaneCriterion
+    from phnet_torch.train.state import create_train_state
+
+    state = create_train_state(cfg, 100, device, seed=0)
+    crit = LaneCriterion(cfg.model, cfg.train.loss)
+    frames, labels = frames.to(device), labels.to(device)
+    with full_f32():
+        outs, _ = state.model.train_forward(frames, labels)
+        loss, _ = crit(outs, labels)
+        loss.backward()
+        norm = state.optimizer.step()
+    grads = dict(state.model.named_parameters())
+    return {"loss": loss.item(), "grad_norm": norm.item(),
+            "matched": torch.stack([outs.matched_fir, outs.matched_sec]
+                                   ).cpu(),
+            "grads": {n: grads[n].grad.cpu() for n in TRAIN_LEAVES}}
+
+
+def phase_train_parity(torch, card, frames_per_clip=4):
+    """One training step card against CPU at full width, B=1, T=4; the
+    bounds are the CPU's own spread under a 1e-6 relative perturbation of
+    the frames, four times over, and no tighter than 2e-5 relative for the
+    loss, 1e-4 for the gradient norm and 2e-3 of each leaf's largest
+    entry (float32 sums in other orders, atomics on the card)."""
+    cfg = train_config(0.0)
+    frames, labels = synthetic_batch(torch, cfg, 1, frames_per_clip)
+    pert = frames * (1.0 + 1e-6 * torch.from_numpy(np.random.default_rng(
+        7).normal(size=tuple(frames.shape)).astype(np.float32)))
+    t0 = time.perf_counter()
+    card_run = grad_run(torch, cfg, frames, labels, "cuda")
+    cpu = grad_run(torch, cfg, frames, labels, "cpu")
+    cpu_p = grad_run(torch, cfg, pert, labels, "cpu")
+    report = []
+    for key, floor in (("loss", 2e-5), ("grad_norm", 1e-4)):
+        err, own = abs(card_run[key] - cpu[key]), abs(cpu_p[key] - cpu[key])
+        bound = max(4 * own, floor * abs(cpu[key]))
+        if not err <= bound:
+            raise AssertionError(f"training card vs CPU {key}: "
+                                 f"{card_run[key]} vs {cpu[key]}, |diff| "
+                                 f"{err} > {bound} (CPU's own {own})")
+        report.append(f"{key} {card_run[key]:.6f} vs {cpu[key]:.6f} "
+                      f"(|diff| {err:.3g}, CPU's own {own:.3g}, bound "
+                      f"{bound:.3g})")
+    worst = 0.0
+    for name in TRAIN_LEAVES:
+        ref = cpu["grads"][name]
+        err = (card_run["grads"][name] - ref).abs().max().item()
+        own = (cpu_p["grads"][name] - ref).abs().max().item()
+        bound = max(4 * own, 2e-3 * ref.abs().max().item())
+        if not err <= bound:
+            raise AssertionError(f"training card vs CPU gradient {name}: "
+                                 f"max |diff| {err} > {bound} (CPU's own "
+                                 f"{own})")
+        worst = max(worst, err / bound)
+    flips = int((card_run["matched"] != cpu["matched"]).sum())
+    own_flips = int((cpu_p["matched"] != cpu["matched"]).sum())
+    if flips > own_flips:
+        raise AssertionError(f"training card vs CPU: {flips} Hungarian "
+                             f"matches differ, the perturbed CPU run "
+                             f"{own_flips}")
+    print(f"[train card vs CPU] full width, 1 clip x {frames_per_clip} "
+          f"frames, dropout 0, cuDNN TF32 flag "
+          f"{torch.backends.cudnn.allow_tf32} around the step: "
+          + "; ".join(report) + f"; {len(TRAIN_LEAVES)} gradient leaves, "
+          f"worst at {worst:.3f} of its bound; matches differing {flips} of "
+          f"{card_run['matched'].numel()} (perturbed CPU {own_flips}); "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def range_kernels(event):
+    """(count, device us) of the kernels launched under a CPU range of a
+    ``torch.profiler`` trace."""
+    n, us = len(event.kernels), sum(k.duration for k in event.kernels)
+    for child in event.cpu_children:
+        cn, cus = range_kernels(child)
+        n, us = n + cn, us + cus
+    return n, us
+
+
+def profile_steps(torch, fn, steps=1, group_of=None):
+    """Run fn ``steps`` times under ``torch.profiler``: device kernel ms,
+    launches, and the launches, device ms and host ms (under the profiler)
+    of each of ``PROFILE_RANGES``, all per call, and the kernel times by
+    name. With ``group_of`` (kernel name
+    -> group) also the device ms by group, each kernel counted once: a
+    kernel launched under one of the ranges goes to the range's group."""
+    from collections import defaultdict
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.name not in PROFILE_RANGES]
+    by_name = defaultdict(float)
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us()
+    ranges = {}
+    for name in PROFILE_RANGES:
+        n = us = 0
+        for e in events:
+            if (e.name == name
+                    and e.device_type == torch.autograd.DeviceType.CPU):
+                cn, cus = range_kernels(e)
+                n, us = n + cn, us + cus
+        host_us = sum(e.cpu_time_total for e in events
+                      if e.name == name and e.device_type
+                      == torch.autograd.DeviceType.CPU)
+        ranges[name] = {"launches": n / steps, "ms": us / 1e3 / steps,
+                        "host_ms": host_us / 1e3 / steps}
+    by_group = defaultdict(float)
+
+    def walk(event, forced):
+        forced = event.name if event.name in PROFILE_RANGES else forced
+        for k in event.kernels:
+            by_group[forced or group_of(k.name)] += k.duration / 1e3 / steps
+        for child in event.cpu_children:
+            walk(child, forced)
+
+    if group_of is not None:
+        for e in events:
+            if (e.device_type == torch.autograd.DeviceType.CPU
+                    and e.cpu_parent is None):
+                walk(e, None)
+    return {"device_ms": sum(by_name.values()) / 1e3 / steps,
+            "launches": len(kernels) / steps, "ranges": ranges,
+            "by_group": dict(by_group),
+            "profiled_wall_ms": wall * 1e3 / steps,
+            "by_name": {k: v / 1e3 / steps for k, v in by_name.items()}}
+
+
+def phase_train_throughput(torch, card, batches=(1, 4), frames_per_clip=16,
+                           warmup=2, timed=5):
+    """Training steps on a fixed batch at full width. Returns the numbers
+    of each batch size."""
+    from phnet_torch.losses import LaneCriterion
+    from phnet_torch.ops import nms as tnms
+    from phnet_torch.ops import router_chain as trc
+    from phnet_torch.ops import w8_matmul as tw8
+    from phnet_torch.train.state import create_train_state
+    from phnet_torch.train.step import make_train_step, step_seed
+
+    cfg = train_config(0.1)
+    crit = LaneCriterion(cfg.model, cfg.train.loss)
+    step = make_train_step(crit, cfg.train.accum_steps)
+    out = {}
+    for b in batches:
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = create_train_state(cfg, 1000, "cuda", seed=0)
+        frames, labels = synthetic_batch(torch, cfg, b, frames_per_clip)
+        frames, labels = frames.cuda(), labels.cuda()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls, dev, k2 = [], [], [], []
+        for i in range(warmup + timed):
+            tnms.lane_nms.launches = 0
+            trc.router_chain.launches = 0
+            tw8.w8_matmul.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, metrics = step(state, frames, labels,
+                                  step_seed(cfg.train.seed, state.step))
+            end.record()
+            losses.append(metrics["loss"].item())  # waits for the card
+            walls.append(time.perf_counter() - t0)
+            dev.append(start.elapsed_time(end))
+            k2.append(trc.router_chain.launches)
+            if tnms.lane_nms.launches or tw8.w8_matmul.launches:
+                raise AssertionError("a training step launched K1 or K3")
+        peak = torch.cuda.max_memory_allocated()
+        want_k2 = 2 * cfg.model.head.refine_layers * frames_per_clip
+        if any(k != want_k2 for k in k2):
+            raise AssertionError(f"router_chain launches a step {k2}, want "
+                                 f"{want_k2} (3 a frame, forward and remat)")
+        if not (np.isfinite(losses).all() and losses[4] < losses[0]):
+            raise AssertionError(f"training losses {losses}: not finite or "
+                                 f"not falling from step 1 to step 5")
+        t_prof = time.perf_counter()
+        prof = profile_steps(torch, lambda: step(
+            state, frames, labels, step_seed(cfg.train.seed, state.step)))
+        t_prof = time.perf_counter() - t_prof
+        w = np.array(walls[warmup:]) * 1e3
+        p50 = float(np.percentile(w, 50))
+        d50 = float(np.percentile(dev[warmup:], 50))
+        jv, k2b = (prof["ranges"]["hungarian_assign"],
+                   prof["ranges"]["router_chain_backward"])
+        k2_ms = sum(v for k, v in prof["by_name"].items()
+                    if "router_chain" in k.lower())
+        out[b] = {"step_p50_ms": p50, "clip_frames_per_s":
+                  b * frames_per_clip / p50 * 1e3, "device_ms_p50": d50,
+                  "peak_mib": peak / 2 ** 20, "k2_launches": k2[-1],
+                  "losses": losses, **{k: prof[k] for k in (
+                      "device_ms", "launches", "profiled_wall_ms")},
+                  "jv": jv, "k2_ms": k2_ms, "k2_backward": k2b}
+        print(f"[train B={b}] {b} x {frames_per_clip} frames at "
+              f"{cfg.model.img_h}x{cfg.model.img_w}, dropout 0.1, "
+              f"{warmup} + {timed} steps: step wall p50 {p50:.1f} ms "
+              f"(all {', '.join(f'{x:.1f}' for x in w)}), "
+              f"{out[b]['clip_frames_per_s']:.2f} clip-frames/s, CUDA-event "
+              f"ms a step p50 {d50:.1f}, peak device memory "
+              f"{peak / 2 ** 20:.1f} MiB; router_chain launches a step "
+              f"{k2[-1]}; losses {', '.join(f'{x:.4f}' for x in losses)} "
+              f"[{card}]")
+        print(f"[train B={b}] one profiled step: {prof['launches']:.0f} "
+              f"kernel launches, device kernel time {prof['device_ms']:.1f} "
+              f"ms (busy {prof['device_ms'] / p50:.3f} of the unprofiled "
+              f"p50), Hungarian solve {jv['ms']:.2f} ms in "
+              f"{jv['launches']:.0f} launches, K2 {k2_ms:.3f} ms, its "
+              f"backward (the plain chain) {k2b['ms']:.2f} ms in "
+              f"{k2b['launches']:.0f} launches; the profiled step and its "
+              f"trace's processing took {t_prof:.1f} s [{card}]")
+        del state, frames, labels
+    return out
+
+
+def phase_trainer(torch, card, frames_per_clip=4):
+    """``train()`` for one epoch, then resumed for a second."""
+    from phnet_torch.data import ClipLoader, SyntheticVideoDataset
+    from phnet_torch.ops import router_chain as trc
+    from phnet_torch.train.checkpoint import CheckpointManager
+    from phnet_torch.train.state import create_train_state
+    from phnet_torch.train.trainer import train
+
+    cfg = train_config(0.1, epoch_per_test=1, epochs_per_increment=1)
+    m = cfg.model
+
+    def data():
+        ds = SyntheticVideoDataset(
+            n_videos=2, frames_per_video=frames_per_clip, img_h=m.img_h,
+            img_w=m.img_w, spec=m.lane, max_lanes=m.max_lanes,
+            skip_increment=cfg.train.skip_increment)
+        return ds, ClipLoader(ds, batch_size=1, seed=cfg.train.seed)
+
+    t0 = time.perf_counter()
+    trc.router_chain.launches = 0
+    with tempfile.TemporaryDirectory() as workdir:
+        ds, loader = data()
+        state, first = train(cfg, ds, loader, workdir, epochs=1,
+                             verbose=False)
+        saved = (state.step, ds.max_skip)
+        fresh = create_train_state(cfg, 4, "cuda", seed=5)
+        fresh, epoch, max_skip = CheckpointManager(workdir).restore_state(
+            fresh)
+        if (fresh.step, epoch, max_skip) != (saved[0], 1, saved[1]):
+            raise AssertionError(f"restored step {fresh.step}, epoch {epoch}"
+                                 f", max_skip {max_skip}; saved {saved}, "
+                                 f"epoch 1")
+        del fresh
+        ds2, loader2 = data()
+        state2, second = train(cfg, ds2, loader2, workdir, epochs=2,
+                               resume=True, verbose=False)
+        files = sorted(os.listdir(workdir))
+    k2 = trc.router_chain.launches
+    if not (len(first) == len(second) == 1
+            and np.isfinite(first + second).all()):
+        raise AssertionError(f"trainer epoch losses {first} then {second}")
+    if state2.step != 4 or ds2.max_skip != 10 or saved != (2, 5):
+        raise AssertionError(f"trainer: step {state2.step}, max_skip "
+                             f"{ds2.max_skip} after the resumed epoch")
+    print(f"[trainer] epoch 1 loss {first[0]:.4f} (step {saved[0]}, "
+          f"max_skip {saved[1]} saved), resumed from step {saved[0]}, epoch "
+          f"1, max_skip {saved[1]}; epoch 2 loss {second[0]:.4f}, step "
+          f"{state2.step}, max_skip {ds2.max_skip}; files {files}; "
+          f"router_chain launches {k2}; {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -795,6 +1133,13 @@ def main() -> int:
     phase_serving(torch, card, state_dict, quantize="int8")
     phase_end_to_end(torch, card, state_dict, quantize="w8")
     phase_pipeline(torch, card, state_dict)
+    torch.backends.cudnn.allow_tf32 = True  # a user's default
+    try:
+        phase_train_parity(torch, card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    training = phase_train_throughput(torch, card)
+    phase_trainer(torch, card)
 
     kernels = []
     for name, numbers, source, count in (
@@ -813,6 +1158,8 @@ def main() -> int:
             "plain_ms": numbers["plain_ms"], "bound_ms": numbers["bound_ms"],
             "bound_by": numbers["bound_by"],
             "library_ms": numbers["library_ms"]})
+        if name == "router_chain":  # its launches in a B=1 training step
+            kernels[-1]["training_launches"] = training[1]["k2_launches"]
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,16 @@
 
 The dataclasses keep the JAX package's field names and defaults for what
 the port runs, so one set of keyword arguments builds the same model in
-both packages. Fields that only selected TPU formulations of the same
-function (stem packing, router chain layouts, stage-0 hoisting, remat,
-scan unroll) are gone, and so are fields of variants the port does not
-have yet (bf16 compute, the OpenLane heads, training): an unknown keyword
-fails when the config is built.
+both packages: VIL-100 inference and float32 VIL-100 training
+(:class:`TrainConfig`, :class:`LossConfig`, ``HeadConfig.decoder_dropout``,
+``ModelConfig.train_assigner`` with the Hungarian assigner only, and
+``ModelConfig.remat_frames``). Fields that only selected TPU formulations
+of the same function (stem packing, router chain layouts, stage-0
+hoisting, remat policies, scan unroll, the flat-matrix AdamW) are gone,
+and so are fields of variants the port does not have yet (bf16 compute,
+the OpenLane heads, the dynamic-k assigner, the VIL-100 loader's
+settings): an unknown keyword fails when the config is built, and a value
+of a variant not yet ported fails in ``__post_init__``.
 """
 
 from __future__ import annotations
@@ -98,6 +103,7 @@ class HeadConfig:
     decoder_layers: int = 2
     decoder_heads: int = 8
     decoder_ffn_dim: int = 256
+    decoder_dropout: float = 0.1  # the decoder's five sites, training only
     pos_temperature: float = 16.0  # sine positional table
     pos_normalize: bool = True
     router_reduction: int = 4
@@ -148,12 +154,23 @@ class ModelConfig:
     # activations with int32 accumulation. Compute stays float32 outside
     # the chains' products.
     quantize: str = "none"
+    # training label assigner, run once a frame on the detached predictions
+    # of both branches and every stage: the batched Jonker-Volgenant solve
+    # (ops/hungarian.py). "dynamic_k" is not ported yet.
+    train_assigner: str = "hungarian"
+    # recompute each frame's head in the backward (torch.utils.checkpoint)
+    # instead of keeping its activations; the assignment and the memory
+    # write stay outside the recomputed region
+    remat_frames: bool = True
 
     def __post_init__(self):
         if self.routing not in ("hard", "soft"):
             raise ValueError(f"routing must be 'hard' or 'soft', got "
                              f"{self.routing!r}")
         check_quantize(self.quantize)
+        if self.train_assigner != "hungarian":
+            raise ValueError(f"train_assigner {self.train_assigner!r} is not "
+                             f"ported yet; the port trains with 'hungarian'")
 
     @property
     def n_offsets(self) -> int:
@@ -165,8 +182,62 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class LossConfig:
+    """Criterion weights of the VIL criterion (``style="blend_all"``: the
+    router blends the whole per-anchor loss of the two branches)."""
+
+    cls_weight: float = 2.5
+    reg_weight: float = 0.5
+    iou_weight: float = 2.0
+    focal_alpha: Tuple[float, float] = (0.5, 0.5)
+    focal_gamma: float = 2.0
+    iou_length: float = 15.0  # +/- band in px of the line IoU
+    # "blend_all" (VIL) or "blend_cls" (OL: the router blends only the cls
+    # loss; reg and IoU of both branches are summed)
+    style: str = "blend_all"
+    # OL's slope-adaptive LaneIoU (CLRerNet) in place of the line IoU, with
+    # its default geometry 400 x 960, not the model's image size
+    use_lane_iou: bool = False
+    lane_iou_width: float = 7.5 / 768.0
+    lane_iou_img_h: int = 400
+    lane_iou_img_w: int = 960
+
+    def __post_init__(self):
+        if self.style not in ("blend_all", "blend_cls"):
+            raise ValueError(f"style must be 'blend_all' or 'blend_cls', got"
+                             f" {self.style!r}")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    epochs: int = 50
+    train_batch: int = 1
+    sampled_frames: int = 16
+    learning_rate: float = 5e-4
+    solver: str = "adamw"  # "adamw" | "sgd" (Nesterov)
+    momentum: Tuple[float, float] = (0.9, 0.999)
+    weight_decay: float = 1e-3
+    skip_increment: int = 5  # the max_skip curriculum's step
+    max_training_skip: int = 100
+    epochs_per_increment: int = 2
+    epoch_per_test: int = 5  # periodic checkpoints
+    seed: int = 3407
+    grad_clip_norm: float = 0.0  # 0 = off
+    accum_steps: int = 1  # micro-batches per optimizer update
+    loss: LossConfig = field(default_factory=LossConfig)
+
+    def __post_init__(self):
+        if self.solver not in ("adamw", "sgd"):
+            raise ValueError(f"unknown solver {self.solver!r}")
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got "
+                             f"{self.accum_steps}")
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def vil100_config(**overrides) -> Config:
@@ -182,5 +253,13 @@ def vil100_config(**overrides) -> Config:
         max_lanes=8,
         routing="hard",
     )
-    cfg = Config(model=model)
+    train = TrainConfig(
+        epochs=50,
+        learning_rate=5e-4,
+        weight_decay=1e-3,
+        epochs_per_increment=2,
+        loss=LossConfig(cls_weight=2.5, reg_weight=0.5, iou_weight=2.0,
+                        focal_alpha=(0.5, 0.5), style="blend_all"),
+    )
+    cfg = Config(model=model, train=train)
     return dataclasses.replace(cfg, **overrides) if overrides else cfg

@@ -1,14 +1,18 @@
-"""Lane geometry for the port: prior rows, anchor embeddings, decoding.
+"""Lane geometry for the port: prior rows, anchor embeddings, decoding,
+label encoding.
 
-Own copy of the parts of ``phnet_tpu.geometry`` that inference needs
-(host-side numpy/scipy): :class:`Lane`, :func:`prior_ys`,
-:func:`decode_predictions`, :func:`decode_kept_rows` and
-:func:`build_prior_embeddings`.
+Own copy of the parts of ``phnet_tpu.geometry`` that inference and
+training need (host-side numpy/scipy): :class:`Lane`, :func:`prior_ys`,
+:func:`decode_predictions`, :func:`decode_kept_rows`,
+:func:`build_prior_embeddings`, and the label encoder with its helpers
+(:func:`sample_ys_for`, :func:`filter_lane`, :func:`sample_lane`,
+:func:`encode_lane_label`).
 """
 
 from __future__ import annotations
 
-from typing import List
+import math
+from typing import List, Sequence, Tuple
 
 import numpy as np
 from scipy.interpolate import InterpolatedUnivariateSpline
@@ -43,6 +47,101 @@ class Lane:
 
     def __len__(self):
         return len(self.points)
+
+
+INVALID = -1e5  # offset columns of a label row that hold no lane point
+
+
+def sample_ys_for(img_h: int, n_offsets: int) -> np.ndarray:
+    """Row sampling grid: bottom (y=img_h) to top (y=0), ``n_offsets``
+    rows (reference ``transformV4.py:90``)."""
+    strip_size = img_h / (n_offsets - 1)
+    return np.arange(img_h, -1, -strip_size)[:n_offsets]
+
+
+def filter_lane(lane: Sequence[Sequence[float]]) -> List[Sequence[float]]:
+    """Drop points sharing a y value, keeping the first occurrence.
+    Expects bottom-to-top order."""
+    assert lane[-1][1] <= lane[0][1]
+    filtered, used = [], set()
+    for p in lane:
+        if p[1] not in used:
+            filtered.append(p)
+            used.add(p[1])
+    return filtered
+
+
+def sample_lane(points: Sequence[Sequence[float]], sample_ys: np.ndarray,
+                img_w: int
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Spline-resample a polyline onto fixed rows, extrapolated to the
+    image bottom by the straight line through its two lowest points.
+    ``points`` sorted bottom-to-top (decreasing y), unique y. Returns
+    ``(extrap_xs, interp_xs, xs_outside_image, xs_inside_image)``."""
+    points = np.array(points, dtype=np.float64)
+    if not np.all(points[1:, 1] < points[:-1, 1]):
+        raise ValueError("Annotation points have to be sorted")
+    x, y = points[:, 0], points[:, 1]
+    assert len(points) > 1
+    interp = InterpolatedUnivariateSpline(y[::-1], x[::-1],
+                                          k=min(3, len(points) - 1))
+    inside_ys = sample_ys[(sample_ys >= y.min()) & (sample_ys <= y.max())]
+    assert len(inside_ys) > 0
+    interp_xs = interp(inside_ys)
+    extrap = np.polyfit(points[:2, 1], points[:2, 0], deg=1)
+    extrap_xs = np.polyval(extrap, sample_ys[sample_ys > y.max()])
+    all_xs = np.hstack((extrap_xs, interp_xs))
+    inside = (all_xs >= 0) & (all_xs < img_w)
+    return extrap_xs, interp_xs, all_xs[~inside], all_xs[inside]
+
+
+def encode_lane_label(lanes: Sequence[Sequence[Sequence[float]]],
+                      lane_ids: Sequence[int], spec: LaneSpec, img_h: int,
+                      img_w: int, max_lanes: int) -> np.ndarray:
+    """Raw polylines to the fixed ``[max_lanes, spec.dim]`` label (reference
+    ``transformV4.py:183-216`` for VIL: start_x over ``img_w``, a valid and
+    an invalid length; OL: start_x over ``img_w - 1``, one length). Offset
+    columns hold absolute pixel xs; unset entries are :data:`INVALID`. Row
+    ``lane_id`` holds lane ``lane_id``; ids past ``max_lanes`` are skipped."""
+    n_strips = spec.n_strips
+    strip_size = img_h / n_strips
+    sample_ys = sample_ys_for(img_h, spec.n_offsets)
+    label = np.ones((max_lanes, spec.dim), dtype=np.float32) * INVALID
+    label[:, 0] = 1.0
+    label[:, 1] = 0.0
+    for lane_id, lane in zip(lane_ids, lanes):
+        if len(lane) < 2:
+            continue
+        lane = filter_lane(sorted(lane, key=lambda p: -p[1]))
+        if len(lane) < 2 or lane_id >= max_lanes:
+            continue
+        try:
+            extrap_xs, interp_xs, xs_out, xs_in = sample_lane(
+                lane, sample_ys, img_w)
+        except (ValueError, AssertionError):
+            continue
+        if len(xs_in) <= 1:
+            continue
+        all_xs = np.hstack((xs_out, xs_in))
+        row = label[lane_id]
+        row[0], row[1] = 0.0, 1.0
+        row[spec.col_start_y] = len(xs_out) / n_strips
+        thetas = []
+        for i in range(1, len(xs_in)):
+            theta = math.atan(i * strip_size
+                              / (xs_in[i] - xs_in[0] + 1e-5)) / math.pi
+            thetas.append(theta if theta > 0 else 1 - abs(theta))
+        row[spec.col_theta] = sum(thetas) / len(thetas)
+        if spec.n_lengths == 2:
+            row[spec.col_start_x] = xs_in[0] / img_w
+            row[spec.col_length] = len(interp_xs) / n_strips
+            row[spec.col_invalid_length] = (len(extrap_xs)
+                                            - len(xs_out)) / n_strips
+        else:
+            row[spec.col_start_x] = xs_in[0] / (img_w - 1)
+            row[spec.col_length] = len(xs_in) / n_strips
+        row[spec.col_xs:spec.col_xs + len(all_xs)] = all_xs
+    return label
 
 
 def prior_ys(n_offsets: int) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Instance interaction with dynamically generated weights, inference path.
+"""Instance interaction with dynamically generated weights.
 
 Port of ``phnet_tpu/models/dynamic_conv.py`` (reference
 ``dynamic_head.py:6-59``). A proposal embedding generates a per-anchor
@@ -16,6 +16,10 @@ and the output MLP (2304 -> 384 -> 64) collapse; the second generator
 the natural d-major order (the JAX package's c-major permutation is a
 layout choice of the TPU; a column permutation commutes with per-column
 quantization, so it is the same function in the quantized modes too).
+The second generator reads its input detached, as the reference does
+(``dynamic_head.py:48-50``). In train mode :meth:`combine_weights` keeps
+the autograd graph, so the combined-to-factored chain rule runs once per
+step, after the frame loop, as in the JAX package.
 
 ``quantize="w8"`` / ``"int8"`` (inference only, ``ops/quant.py``) turns
 every chain product into an int8 one against kernels quantized per output
@@ -81,7 +85,6 @@ class DynamicConv(nn.Module):
             ln.weight.data.fill_(1.0)
             ln.bias.data.zero_()
 
-    @torch.no_grad()
     def combine_weights(self) -> Dict[str, Union[tuple, Dict]]:
         """Per chain: ``(kernel [in, out], bias)`` of the collapsed pair, or
         ``(k1, b1, k2, b2)`` of the factored one, kernels as [in, out].
@@ -89,7 +92,14 @@ class DynamicConv(nn.Module):
         ``{wq, sw, b}`` for a collapsed chain (the f32 product and bias
         fold, then :func:`quantize_colwise`) and ``{wq1, sw1, b1, wq2, sw2,
         b2}`` for a factored one; ``"int8"`` stores the int8 kernels
-        column-major (:func:`int8_weight_layout`)."""
+        column-major (:func:`int8_weight_layout`). Keeps the autograd graph
+        only in train mode and unquantized (the quantized forms are
+        inference-only)."""
+        with torch.set_grad_enabled(self.training and self.quantize == "none"
+                                    and torch.is_grad_enabled()):
+            return self._combine()
+
+    def _combine(self) -> Dict[str, Union[tuple, Dict]]:
         out = {}
         for name in ("gen1", "gen2", "out"):
             la, lb = getattr(self, name + "_a"), getattr(self, name + "_b")
@@ -135,7 +145,7 @@ class DynamicConv(nn.Module):
         w1 = self._affine(pro_feat, combined["gen1"])
         w1 = w1.reshape(*w1.shape[:-1], c, d)
         feats = torch.relu(self.norm1(roi_feat @ w1))  # [B, A, P, D]
-        w2 = self._affine(feats.reshape(*feats.shape[:-2], p * d),
+        w2 = self._affine(feats.detach().reshape(*feats.shape[:-2], p * d),
                           combined["gen2"])
         w2 = w2.reshape(*w2.shape[:-1], d, c)
         feats = torch.relu(self.norm2(feats @ w2))  # [B, A, P, C]

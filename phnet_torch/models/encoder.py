@@ -28,6 +28,12 @@ class Encoder(nn.Module):
     def forward(self, frames: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """frames [N, H, W, 3] -> FPN levels (strides 8/16/32), each
         [N, h, w, C] (a channels-last view of the NCHW result)."""
-        feats = self.backbone(frames.permute(0, 3, 1, 2))
+        x = frames.permute(0, 3, 1, 2)
+        if torch.is_grad_enabled():
+            # NCHW-contiguous for the backward: torch 2.13's CPU convolution
+            # backward corrupts memory on this channels-last view at the
+            # first stride-2 block
+            x = x.contiguous()
+        feats = self.backbone(x)
         feats = [feats[i] for i in self.cfg.backbone.out_indices]
         return tuple(o.permute(0, 2, 3, 1) for o in self.neck(feats))

@@ -1,4 +1,4 @@
-"""Dual-branch anchor lane head with 3-stage refinement, inference mode.
+"""Dual-branch anchor lane head with 3-stage refinement.
 
 Port of ``phnet_tpu/models/head.py::LaneHead`` (single-scale variant,
 both branch MLP stacks per stage, no stage-0 hoisting). Per refine stage,
@@ -11,12 +11,19 @@ coarse FPN level first:
 4. the first branch decodes the embedding; the second branch decodes it
    after the temporal decoder attended to the memory bank;
 5. the router-blended geometry seeds the next stage's priors.
+
+The gradient stops where the JAX package stops it: at the router's input
+(the router learns only from the loss blend), at the embedding handed to
+the next stage, and at the blend weight and the next stage's priors.
+Inference is not changed by them. In train mode the temporal decoder
+applies dropout with masks drawn from the generator :meth:`LaneHead.forward`
+is given.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,7 +146,8 @@ class LaneHead(nn.Module):
         self.heads_fir = MergedBranchHeads(d, out_dims, h.num_fc)
         self.heads_sec = MergedBranchHeads(2 * d, out_dims, h.num_fc)
         self.temporal_decoder = TemporalDecoder(
-            2 * d, h.decoder_layers, h.decoder_heads, h.decoder_ffn_dim)
+            2 * d, h.decoder_layers, h.decoder_heads, h.decoder_ffn_dim,
+            h.decoder_dropout)
 
     def reset_parameters(self, g: torch.Generator):
         self.prior_embeddings.data.copy_(
@@ -218,7 +226,7 @@ class LaneHead(nn.Module):
     def _stage_local(self, s, level, priors, pro_feat, combined):
         """Pool, router score, DynamicConv, attention features of stage s."""
         pooled = self._pool(level, priors)  # [B, A, P, C]
-        diff = self.routers[s](pooled.transpose(-1, -2))[..., 0]  # [B, A]
+        diff = self.routers[s](pooled.transpose(-1, -2).detach())[..., 0]
         decode_feat = self.dyn_heads[s](pro_feat, pooled, combined)
         attn_feat = torch.cat(
             [decode_feat, self.pos[None].expand_as(decode_feat)], dim=-1)
@@ -226,10 +234,13 @@ class LaneHead(nn.Module):
 
     def forward(self, fpn_feats: Tuple[torch.Tensor, ...],
                 memory_values: torch.Tensor, memory_mask: torch.Tensor,
-                dyn_combined=None) -> HeadOutputs:
+                dyn_combined=None,
+                dropout_gen: Optional[torch.Generator] = None
+                ) -> HeadOutputs:
         """One frame. fpn_feats: [B, H, W, C] levels fine -> coarse (stage
         s reads level ``-1 - s``); memory_values [B, S, M, 2C];
-        memory_mask [B, M] bool; dyn_combined: :meth:`combine_dynamic`."""
+        memory_mask [B, M] bool; dyn_combined: :meth:`combine_dynamic`;
+        dropout_gen: the decoder's dropout masks (train mode only)."""
         h = self.cfg.head
         levels = tuple(reversed(fpn_feats))
         b = levels[0].shape[0]
@@ -243,16 +254,16 @@ class LaneHead(nn.Module):
                 s, levels[s], priors, pro_feat, dyn_combined[s])
             diffs.append(diff)
             attn_feats.append(attn_feat)
-            pro_feat = decode_feat
+            pro_feat = decode_feat.detach()
             decoded = self.temporal_decoder(attn_feat, memory_values[:, s],
-                                            memory_mask)
+                                            memory_mask, dropout_gen)
             (fir_full, fir_lines), (sec_full, sec_lines) = self._dual_branch(
                 decode_feat, decoded, priors)
             preds_fir.append(fir_full)
             preds_sec.append(sec_full)
             if s != h.refine_layers - 1:
-                w = diff[..., None]
-                priors = (1.0 - w) * fir_lines + w * sec_lines
+                w = diff.detach()[..., None]
+                priors = ((1.0 - w) * fir_lines + w * sec_lines).detach()
         return HeadOutputs(pred_fir=torch.stack(preds_fir),
                            pred_sec=torch.stack(preds_sec),
                            diff=torch.stack(diffs),

@@ -1,11 +1,22 @@
-"""PHNet clip model, inference path (port of ``phnet_tpu/models/phnet.py``).
+"""PHNet clip model (port of ``phnet_tpu/models/phnet.py``): inference and
+training.
 
 The encoder runs over all clip frames as one batch; the head then runs
 frame by frame in a Python loop, carrying a fixed-shape ring memory of
-positive-lane features ``[B, S, W, L+1, 2C]`` with a slot mask. Each
-frame's routed predictions go through the confidence filter and lane NMS
-(the CUDA kernel on the card), and the kept rows plus one mean-negative
-row are written into the ring.
+positive-lane features ``[B, S, W, L+1, 2C]`` with a slot mask.
+
+Inference (:meth:`PHNet.forward`, :meth:`PHNet.detect`): each frame's
+routed predictions go through the confidence filter and lane NMS (the CUDA
+kernel on the card), and the kept rows plus one mean-negative row are
+written into the ring.
+
+Training (:meth:`PHNet.train_forward`, the model in train mode): BatchNorm
+on batch statistics, decoder dropout, and per frame one batched Hungarian
+solve on the detached predictions of both branches and every stage; each
+stage writes the features of its own second-branch matches into the ring,
+with their gradient. ``remat_frames`` recomputes each frame's head in the
+backward; the solve and the memory write stay outside the recomputed
+region. Quantized configurations do not train.
 """
 
 from __future__ import annotations
@@ -14,9 +25,11 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..device import full_f32, resolve_device
+from ..losses.assign import train_assign
 from ..ops.nms import nms_keeps
 from .encoder import Encoder
 from .head import HeadOutputs, LaneHead
@@ -36,6 +49,21 @@ class InferFrameOut(NamedTuple):
     kept_valid: torch.Tensor  # [B, K] bool
     num_kept: torch.Tensor    # [B]
     keep_idx: torch.Tensor    # [B, K] kept anchors, -1 = empty slot
+
+
+class TrainFrameOut(NamedTuple):
+    """The training forward's outputs, stacked over the clip's T frames."""
+
+    pred_fir: torch.Tensor     # [T, S, B, A, dim]
+    pred_sec: torch.Tensor     # [T, S, B, A, dim]
+    diff: torch.Tensor         # [T, S, B, A]
+    matched_sec: torch.Tensor  # [T, S, B, L] second-branch matches
+    matched_fir: torch.Tensor  # [T, S, B, L] first-branch matches
+
+
+def frame_seed(seed: int, frame: int) -> int:
+    """The dropout seed of one frame of a step seeded ``seed``."""
+    return (seed * 1_000_003 + frame) % 2 ** 63
 
 
 def init_memory(cfg: ModelConfig, batch: int, window: int,
@@ -61,16 +89,20 @@ def route_predictions(cfg: ModelConfig, out: HeadOutputs) -> torch.Tensor:
 
 
 def write_memory(mem: MemoryState, attn_feat: torch.Tensor,
-                 slot_idx: torch.Tensor) -> MemoryState:
+                 slot_idx: torch.Tensor,
+                 slot_valid: Optional[torch.Tensor] = None) -> MemoryState:
     """Write one frame into the ring at ``t % W``: per stage, the features
-    of the kept anchors (``slot_idx`` [B, L], -1 = empty slot, zeroed) and
-    one negative row, the mean of the anchors not kept. Returns a new
-    state; ``mem`` is not modified."""
+    of the kept anchors and one negative row, the mean of the anchors not
+    kept. ``slot_idx`` is [B, L] (the same anchors for every stage) or
+    [S, B, L] (each stage its own, as in training); invalid slots
+    (``slot_valid`` [B, L], by default ``slot_idx >= 0``) are zeroed.
+    Distinct anchors per stage and stream. Returns a new state; ``mem``
+    is not modified, and gradients flow into the written rows."""
     s, b, a, d = attn_feat.shape
-    slot_valid = slot_idx >= 0
-    idx = slot_idx.clamp(0, a - 1)
-    pos = torch.gather(attn_feat, 2,
-                       idx[None, :, :, None].expand(s, -1, -1, d))
+    if slot_valid is None:
+        slot_valid = slot_idx >= 0
+    idx = slot_idx.clamp(0, a - 1).expand(s, b, -1)
+    pos = torch.gather(attn_feat, 2, idx[..., None].expand(-1, -1, -1, d))
     pos = pos * slot_valid[None, :, :, None]  # [S, B, L, D]
     n_pos = slot_valid.sum(-1).to(attn_feat.dtype)  # [B]
     neg = (attn_feat.sum(2) - pos.sum(2)) / torch.clamp(
@@ -87,13 +119,16 @@ def write_memory(mem: MemoryState, attn_feat: torch.Tensor,
 
 
 class PHNet(nn.Module):
-    """Full clip model, inference. Frames are [B, T, H, W, 3] (normalized).
+    """Full clip model. Frames are [B, T, H, W, 3] (normalized).
 
     ``device=None`` builds on the card; the parameters are left
     uninitialized: load a state dict (``phnet_torch.convert``) or call
     :meth:`reset_parameters` with a generator. :meth:`forward`,
-    :meth:`encode` and :meth:`frame_step` compute in float32 whatever the
-    process's TF32 flags say (:func:`~phnet_torch.device.full_f32`)."""
+    :meth:`encode`, :meth:`frame_step` and :meth:`train_forward` compute
+    in float32 whatever the process's TF32 flags say
+    (:func:`~phnet_torch.device.full_f32`); a training step also runs its
+    backward inside ``full_f32``. Built in eval mode; ``train()`` before
+    :meth:`train_forward`."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -177,3 +212,56 @@ class PHNet(nn.Module):
                 initial_memory: Optional[MemoryState] = None,
                 dyn_combined=None):
         return self.detect(self.encode(frames), initial_memory, dyn_combined)
+
+    def _train_head(self, feats, mem_values, mem_mask, combined, seed):
+        """One frame's head in training; dropout masks from ``seed`` (the
+        same masks again when the backward recomputes the frame)."""
+        gen = None
+        if seed is not None and self.cfg.head.decoder_dropout > 0.0:
+            gen = torch.Generator(device=feats[0].device).manual_seed(seed)
+        return self.head(feats, mem_values, mem_mask, combined, gen)
+
+    @full_f32()
+    def train_forward(self, frames: torch.Tensor, labels: torch.Tensor,
+                      dropout_seed: Optional[int] = None):
+        """The training forward over a clip: frames [B, T, H, W, 3],
+        labels [B, T, L, dim] (the label encoder's layout). Train mode
+        gives BatchNorm on batch statistics (updating the running ones)
+        and, with a ``dropout_seed``, decoder dropout. Returns
+        (:class:`TrainFrameOut`, final memory)."""
+        cfg = self.cfg
+        if cfg.quantize != "none":
+            raise ValueError(
+                f"quantize={cfg.quantize!r} is inference-only (round() has "
+                f"no useful gradient); train with quantize='none'")
+        feats = self.encode(frames)
+        t, b = feats[0].shape[:2]
+        s, window = cfg.head.refine_layers, (
+            cfg.memory.window if cfg.memory.window > 0 else t)
+        mem = init_memory(cfg, b, window, frames.device)
+        slots = mem.values.shape[3]
+        combined = self.head.combine_dynamic()
+        labels_t = labels.transpose(0, 1)
+        remat = cfg.remat_frames and torch.is_grad_enabled()
+        outs = []
+        for i in range(t):
+            args = (tuple(f[i] for f in feats),
+                    mem.values.reshape(b, s, window * slots, -1),
+                    mem.mask.reshape(b, window * slots), combined,
+                    None if dropout_seed is None else frame_seed(
+                        dropout_seed, i))
+            if remat:
+                out = checkpoint(self._train_head, *args, use_reentrant=False,
+                                 preserve_rng_state=False)
+            else:
+                out = self._train_head(*args)
+            label = labels_t[i]
+            valid = label[..., 1] == 1.0
+            both = torch.cat([out.pred_fir, out.pred_sec]).detach()
+            matched = train_assign(cfg, both,
+                                   label.expand(2 * s, *label.shape),
+                                   valid.expand(2 * s, *valid.shape))
+            mem = write_memory(mem, out.attn_feat, matched[s:], valid)
+            outs.append(TrainFrameOut(out.pred_fir, out.pred_sec, out.diff,
+                                      matched[s:], matched[:s]))
+        return TrainFrameOut(*(torch.stack(x) for x in zip(*outs))), mem

@@ -1,9 +1,11 @@
-"""ResNet backbone (BasicBlock, inference), NCHW inside.
+"""ResNet backbone (BasicBlock), NCHW inside.
 
-Port of ``phnet_tpu/models/resnet.py`` for ResNet-18/34 with BatchNorm on
-running statistics and the 7x7/s2 stem followed by a 3x3/s2 max pool (the
-stem the JAX package resolves ``"auto"`` to off the TPU). The packed
-stems of the JAX package compute the same function and are not ported.
+Port of ``phnet_tpu/models/resnet.py`` for ResNet-18/34 with the 7x7/s2
+stem followed by a 3x3/s2 max pool (the stem the JAX package resolves
+``"auto"`` to off the TPU). The packed stems of the JAX package compute
+the same function and are not ported. BatchNorm normalizes with running
+statistics in eval mode and with the batch's in train mode
+(``phnet_tpu/ops/batchnorm.py``).
 """
 
 from __future__ import annotations
@@ -24,8 +26,20 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm on running statistics (flax ``scale``/``bias`` +
-    ``batch_stats`` ``mean``/``var``), epsilon 1e-5."""
+    """BatchNorm with flax's parameters (``scale``/``bias`` as weight and
+    bias, ``batch_stats`` ``mean``/``var`` as buffers), epsilon 1e-5.
+
+    Eval mode normalizes with the running statistics. Train mode follows
+    the JAX package's ``FusedBatchNorm``: statistics over every image of
+    the batch (N, H, W) in float32 by the fast variance
+    ``max(0, E[x^2] - E[x]^2)``, ``y = (x - mean) * (rsqrt(var + eps) *
+    scale) + bias``, and the running statistics updated in place as
+    ``r = 0.9 r + 0.1 batch`` with the biased batch variance (which
+    ``F.batch_norm`` does not do: it keeps the unbiased one). The gradient
+    is autograd's of that formula; the JAX package's custom VJP is its
+    closed form."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -42,8 +56,20 @@ class BatchNorm(nn.Module):
             t.data.fill_(v)
 
     def forward(self, x):
-        return F.batch_norm(x, self.mean, self.var, self.weight, self.bias,
-                            False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.mean, self.var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        n = x.numel() // x.shape[1]
+        mean = x.sum(dim=(0, 2, 3)) / n
+        var = torch.clamp((x * x).sum(dim=(0, 2, 3)) / n - mean * mean,
+                          min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        r = torch.rsqrt(var + self.eps)
+        return ((x - mean[:, None, None]) * (r * self.weight)[:, None, None]
+                + self.bias[:, None, None])
 
 
 def _conv(cin, cout, k, stride=1, padding=0):

@@ -1,4 +1,4 @@
-"""Pre-norm transformer decoder of the second branch, inference mode.
+"""Pre-norm transformer decoder of the second branch.
 
 Port of ``phnet_tpu/models/transformer.py``. The memory is a fixed-shape
 [B, M, D] bank with a key mask; masked logits are set to -1e9 (not -inf,
@@ -7,6 +7,12 @@ memory pass ``tgt`` through unchanged after the final norm. Projections
 are fused per source (``qkv`` for self-attention, ``q`` + ``kv`` for
 cross-attention); LayerNorms use flax's epsilon 1e-6 and the FFN the tanh
 GELU of ``flax.linen.gelu``.
+
+Dropout (train mode, rate ``dropout``) sits where the JAX package puts
+it: on the attention weights, on each attention's residual branch, after
+the FFN's GELU and on its output. Its masks come from the
+``torch.Generator`` the caller passes, so that a recompute seeded alike
+draws the same masks; with no generator, or in eval mode, there is none.
 """
 
 from __future__ import annotations
@@ -20,6 +26,17 @@ import torch.nn.functional as F
 
 NEG_INF = -1e9
 LN_EPS = 1e-6
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout``: keep with probability ``1 - rate`` (a uniform
+    draw from ``gen`` at or above ``rate``) and scale the kept by
+    ``1 / (1 - rate)``. Identity when ``gen`` is None or rate is 0."""
+    if gen is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def _lecun_(lin: nn.Linear, g: torch.Generator):
@@ -40,9 +57,11 @@ class MultiHeadAttention(nn.Module):
             self.kv = nn.Linear(dim, 2 * dim)
         self.out = nn.Linear(dim, dim)
 
-    def forward(self, q, kv, key_mask: Optional[torch.Tensor] = None):
+    def forward(self, q, kv, key_mask: Optional[torch.Tensor] = None,
+                rate: float = 0.0, gen: Optional[torch.Generator] = None):
         """q [B, Nq, D]; kv [B, Nk, D] (ignored for self-attention);
-        key_mask [B, Nk] bool (True = keep)."""
+        key_mask [B, Nk] bool (True = keep); dropout of the attention
+        weights at ``rate`` from ``gen``."""
         h = self.num_heads
         hd = self.dim // h
         b, nq, _ = q.shape
@@ -58,13 +77,16 @@ class MultiHeadAttention(nn.Module):
         logits = (qp @ kp.transpose(-1, -2)) / math.sqrt(float(hd))
         if key_mask is not None:
             logits = logits.masked_fill(~key_mask[:, None, None, :], NEG_INF)
-        out = torch.softmax(logits, dim=-1) @ vp  # [B, H, Nq, hd]
+        weights = dropout(torch.softmax(logits, dim=-1), rate, gen)
+        out = weights @ vp  # [B, H, Nq, hd]
         return self.out(out.transpose(1, 2).reshape(b, nq, self.dim))
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, dim: int, num_heads: int = 8, ffn_dim: int = 256):
+    def __init__(self, dim: int, num_heads: int = 8, ffn_dim: int = 256,
+                 dropout: float = 0.0):
         super().__init__()
+        self.rate = dropout
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.self_attn = MultiHeadAttention(dim, num_heads, True)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
@@ -73,11 +95,17 @@ class DecoderLayer(nn.Module):
         self.ffn1 = nn.Linear(dim, ffn_dim)
         self.ffn2 = nn.Linear(ffn_dim, dim)
 
-    def forward(self, tgt, memory, memory_mask):
-        tgt = tgt + self.self_attn(self.norm1(tgt), None)
-        tgt = tgt + self.cross_attn(self.norm2(tgt), memory, memory_mask)
+    def forward(self, tgt, memory, memory_mask,
+                gen: Optional[torch.Generator] = None):
+        """``gen``: the dropout masks' generator (train mode only)."""
+        p = self.rate
+        gen = gen if self.training else None
+        sa = self.self_attn(self.norm1(tgt), None, None, p, gen)
+        tgt = tgt + dropout(sa, p, gen)
+        ca = self.cross_attn(self.norm2(tgt), memory, memory_mask, p, gen)
+        tgt = tgt + dropout(ca, p, gen)
         y = F.gelu(self.ffn1(self.norm3(tgt)), approximate="tanh")
-        return tgt + self.ffn2(y)
+        return tgt + dropout(self.ffn2(dropout(y, p, gen)), p, gen)
 
 
 class TemporalDecoder(nn.Module):
@@ -85,10 +113,11 @@ class TemporalDecoder(nn.Module):
     whose memory bank is empty."""
 
     def __init__(self, dim: int, num_layers: int = 2, num_heads: int = 8,
-                 ffn_dim: int = 256):
+                 ffn_dim: int = 256, dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(dim, num_heads, ffn_dim) for _ in range(num_layers))
+            DecoderLayer(dim, num_heads, ffn_dim, dropout)
+            for _ in range(num_layers))
         self.final_norm = nn.LayerNorm(dim, eps=LN_EPS)
 
     def reset_parameters(self, g: torch.Generator):
@@ -99,11 +128,13 @@ class TemporalDecoder(nn.Module):
                 m.weight.data.fill_(1.0)
                 m.bias.data.zero_()
 
-    def forward(self, tgt, memory, memory_mask):
-        """tgt [B, A, D]; memory [B, M, D]; memory_mask [B, M] bool."""
+    def forward(self, tgt, memory, memory_mask,
+                gen: Optional[torch.Generator] = None):
+        """tgt [B, A, D]; memory [B, M, D]; memory_mask [B, M] bool;
+        ``gen``: the dropout masks' generator (train mode only)."""
         x = tgt
         for layer in self.layers:
-            x = layer(x, memory, memory_mask)
+            x = layer(x, memory, memory_mask, gen)
         x = self.final_norm(x)
         has_memory = memory_mask.any(dim=-1)
         return torch.where(has_memory[:, None, None], x, tgt)

@@ -7,7 +7,12 @@ and bias) -> LN -> ReLU -> 3x3 -> LN -> + residual -> ReLU.
 
 :func:`router_chain` is the wrapper: CUDA tensors run the kernel
 ``csrc/router_chain.cu``, CPU tensors run :func:`router_chain_plain`.
-:func:`router_plan` chooses how the kernel groups the planes.
+:func:`router_plan` chooses how the kernel groups the planes. Where a
+gradient is wanted, the wrapper goes through :class:`RouterChainFn`: its
+forward is the same launch, its backward recomputes
+:func:`router_chain_plain` under autograd and differentiates that (the
+kernel has no backward of its own yet; the JAX package trains this chain
+through XLA, not through its Pallas kernel).
 """
 
 from __future__ import annotations
@@ -174,16 +179,50 @@ def _chain_cuda(x, taps, bias, ln_params, blocks: int):
     return out
 
 
-def router_chain(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
-                 ln_params: torch.Tensor, blocks: int) -> torch.Tensor:
-    """The router chain on x [N, C, P] (see :func:`router_chain_plain`).
-    CUDA tensors run the kernel, CPU tensors the plain version."""
+def _chain(x, taps, bias, ln_params, blocks: int) -> torch.Tensor:
     if x.is_cuda:
         return _chain_cuda(x.contiguous(), taps.contiguous(),
                            bias.contiguous(), ln_params.contiguous(), blocks)
     if x.device.type == "cpu":
         return router_chain_plain(x, taps, bias, ln_params, blocks)
     raise ValueError(f"router_chain: unsupported device {x.device}")
+
+
+class RouterChainFn(torch.autograd.Function):
+    """The chain with a gradient: forward as :func:`router_chain` (the
+    kernel on the card), backward by autograd through
+    :func:`router_chain_plain` recomputed from the saved inputs (the range
+    ``router_chain_backward`` in a ``torch.profiler`` trace)."""
+
+    @staticmethod
+    def forward(ctx, x, taps, bias, ln_params, blocks):
+        ctx.save_for_backward(x, taps, bias, ln_params)
+        ctx.blocks = blocks
+        return _chain(x, taps, bias, ln_params, blocks)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(
+            ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad(), torch.profiler.record_function(
+                "router_chain_backward"):
+            y = router_chain_plain(*inputs, ctx.blocks)
+            grads = iter(torch.autograd.grad(y, wanted, grad))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in inputs), None)
+
+
+def router_chain(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
+                 ln_params: torch.Tensor, blocks: int) -> torch.Tensor:
+    """The router chain on x [N, C, P] (see :func:`router_chain_plain`).
+    CUDA tensors run the kernel, CPU tensors the plain version; with
+    autograd on and an input that wants a gradient, through
+    :class:`RouterChainFn`."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, taps, bias, ln_params)):
+        return RouterChainFn.apply(x, taps, bias, ln_params, blocks)
+    return _chain(x, taps, bias, ln_params, blocks)
 
 
 router_chain.launches = 0  # kernel launches, counted where the kernel launches

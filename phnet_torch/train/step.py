@@ -1,0 +1,71 @@
+"""One training step (port of ``phnet_tpu/train/step.py``).
+
+A step runs the model's training forward over the clip batch, the
+criterion, the backward and one optimizer update, all inside
+:func:`~phnet_torch.device.full_f32`, so that the backward's convolutions
+and matmuls (the frames' recomputation under remat included) run in
+float32 whatever the TF32 flags say. It makes no host sync: the metrics
+come back as device tensors.
+
+``accum_steps > 1`` splits the batch into that many micro-batches,
+accumulates their gradients and makes one update on their mean; BatchNorm's
+running statistics see each micro-batch in turn, as the JAX package's scan
+over micro-batches does.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from ..device import full_f32
+from ..losses.criterion import LaneCriterion
+from .state import TrainState
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The dropout seed of training step ``step`` of a run seeded ``seed``."""
+    return (seed * 7_919 + step) % 2 ** 62
+
+
+def make_train_step(criterion: LaneCriterion,
+                    accum_steps: int = 1) -> Callable:
+    """``train_step(state, frames, labels, seed)`` -> ``(state, metrics)``;
+    frames [B, T, H, W, 3], labels [B, T, L, dim] on the model's device.
+    ``seed`` seeds the decoder's dropout masks. metrics: loss, grad_norm,
+    cls, reg, iou (device scalars)."""
+
+    def train_step(state: TrainState, frames: torch.Tensor,
+                   labels: torch.Tensor, seed: int
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        b = frames.shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} not divisible by accum_steps="
+                             f"{accum_steps}")
+        mb = b // accum_steps
+        model, opt = state.model, state.optimizer
+        model.train()
+        opt.zero_grad()
+        total, sums = 0.0, {}
+        with full_f32():
+            for k in range(accum_steps):
+                sl = slice(k * mb, (k + 1) * mb)
+                outs, _ = model.train_forward(frames[sl], labels[sl],
+                                              step_seed(seed, k))
+                loss, metrics = criterion(outs, labels[sl])
+                loss.backward()
+                total = total + loss.detach()
+                for key, v in metrics.items():
+                    sums[key] = sums.get(key, 0.0) + v.detach()
+            if accum_steps > 1:
+                torch._foreach_div_([p.grad for p in opt.params
+                                     if p.grad is not None], accum_steps)
+            grad_norm = opt.step()
+        metrics = {key: v / accum_steps for key, v in sums.items()}
+        metrics["loss"] = total / accum_steps
+        metrics["grad_norm"] = grad_norm
+        state.step += 1
+        return state, metrics
+
+    return train_step

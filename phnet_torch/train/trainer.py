@@ -1,0 +1,125 @@
+"""The epoch training loop (port of ``phnet_tpu/train/trainer.py``,
+reference ``trainVIL.py:55-265``).
+
+Per epoch: the loader's seeded shuffle, one step a batch with the
+per-iteration cosine learning rate, a windowed loss meter, a NaN check,
+the ``max_skip`` curriculum every ``epochs_per_increment`` epochs, and
+the checkpoint policy (``best`` when the epoch's mean loss is the lowest
+so far, ``epoch_{n}`` every ``epoch_per_test`` epochs). ``resume`` picks up
+the latest periodic checkpoint, curriculum included; ``initial`` loads
+weights only. A text log (epoch, learning rate, loss) goes to
+``workdir/log.txt``. One device: the card unless ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from collections import deque
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..device import resolve_device
+from ..losses.criterion import LaneCriterion
+from .checkpoint import CheckpointManager
+from .state import TrainState, create_train_state
+from .step import make_train_step, step_seed
+
+
+class AverageMeter:
+    """Mean over a window of the last ``window`` values (the reference's
+    480-deque)."""
+
+    def __init__(self, window: int = 480):
+        self.values = deque(maxlen=window)
+        self.val = 0.0
+
+    def update(self, val: float):
+        self.val = val
+        self.values.append(val)
+
+    @property
+    def avg(self) -> float:
+        return sum(self.values) / max(len(self.values), 1)
+
+
+class TextLogger:
+    """Append-only tab-separated log."""
+
+    def __init__(self, path: str, items):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self.file = open(path, "a")
+        self.file.write("\t".join(items) + "\n")
+        self.file.flush()
+
+    def log(self, *values):
+        self.file.write("\t".join(f"{v:.6g}" if isinstance(v, float)
+                                  else str(v) for v in values) + "\n")
+        self.file.flush()
+
+    def close(self):
+        self.file.close()
+
+
+def train(cfg: Config, dataset, loader, workdir: str,
+          epochs: Optional[int] = None, resume: bool = False,
+          initial: Optional[str] = None, log_every: int = 10,
+          verbose: bool = True, device=None
+          ) -> Tuple[TrainState, List[float]]:
+    """Train ``cfg`` on ``loader``'s batches of ``dataset`` into
+    ``workdir``. Returns the final state and each epoch's mean loss."""
+    tcfg = cfg.train
+    epochs = epochs or tcfg.epochs
+    dev = resolve_device(device)
+    total_steps = max(len(loader) * epochs, 1)
+    state = create_train_state(cfg, total_steps, dev)
+    criterion = LaneCriterion(cfg.model, tcfg.loss)
+    ckpt = CheckpointManager(workdir)
+    start_epoch = 0
+    if resume:
+        state, start_epoch, max_skip = ckpt.restore_state(state)
+        dataset.set_max_skip(max_skip)
+    elif initial:
+        state = ckpt.restore_weights(state, initial)
+    step_fn = make_train_step(criterion, tcfg.accum_steps)
+    logger = TextLogger(os.path.join(workdir, "log.txt"),
+                        ["Epoch", "LR", "TrainLoss"])
+    history = []
+    try:
+        for epoch in range(start_epoch, epochs):
+            loader.set_epoch(epoch)
+            meter = AverageMeter()
+            t_end = time.time()
+            for it, batch in enumerate(loader):
+                data_s = time.time() - t_end
+                frames = torch.from_numpy(batch["frames"]).to(dev)
+                labels = torch.from_numpy(batch["labels"]).to(dev)
+                state, metrics = step_fn(state, frames, labels,
+                                         step_seed(tcfg.seed, state.step))
+                loss = float(metrics["loss"])
+                if not np.isfinite(loss):
+                    raise FloatingPointError(f"Loss is NaN! ({loss} at step "
+                                             f"{state.step})")
+                meter.update(loss)
+                if verbose and it % log_every == 0:
+                    print(f"epoch {epoch + 1}/{epochs} it {it + 1}/"
+                          f"{len(loader)} loss {loss:.4f} (avg "
+                          f"{meter.avg:.4f}) data {data_s:.3f}s", flush=True)
+                t_end = time.time()
+            train_loss = meter.avg
+            history.append(train_loss)
+            logger.log(epoch + 1, state.optimizer.lr(), train_loss)
+            if (epoch + 1) % tcfg.epochs_per_increment == 0:
+                dataset.increase_max_skip()
+            is_best = train_loss <= state.min_loss
+            state.min_loss = min(state.min_loss, train_loss)
+            periodic = (epoch + 1) % tcfg.epoch_per_test == 0
+            if is_best or periodic:
+                ckpt.save(state, epoch + 1, dataset.max_skip,
+                          is_best=is_best, periodic=periodic)
+    finally:
+        logger.close()
+    return state, history

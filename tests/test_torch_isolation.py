@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``phnet_torch``, nothing in
-``chip_smoke.py`` and nothing in ``tools/torch_serving_profile.py``
-imports JAX, flax or the JAX package, and its entry points run on the
-card by default (so they raise where there is none)."""
+``chip_smoke.py`` and nothing in ``tools/torch_serving_profile.py`` or
+``tools/torch_train_profile.py`` imports JAX, flax, optax or the JAX
+package, and its entry points run on the card by default (so they raise
+where there is none)."""
 
 import ast
 from pathlib import Path
@@ -13,6 +14,8 @@ from phnet_torch.config import vil100_config
 from phnet_torch.models import PHNet
 from phnet_torch.pipeline import InferencePipeline
 from phnet_torch.serving import StreamingServer
+from phnet_torch.train.state import create_train_state
+from phnet_torch.train.trainer import train
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "phnet_tpu")
@@ -21,6 +24,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "phnet_tpu")
 def port_sources():
     return (sorted((REPO / "phnet_torch").rglob("*.py"))
             + [REPO / "tools" / "torch_serving_profile.py",
+               REPO / "tools" / "torch_train_profile.py",
                REPO / "chip_smoke.py"])
 
 
@@ -38,7 +42,14 @@ def test_port_sources_exist():
             "phnet_torch/ops/router_chain.py",
             "phnet_torch/ops/quant.py", "phnet_torch/ops/w8_matmul.py",
             "phnet_torch/pipeline.py", "phnet_torch/evaluation/emit.py",
-            "phnet_torch/serving.py"} <= names
+            "phnet_torch/serving.py", "phnet_torch/ops/hungarian.py",
+            "phnet_torch/losses/focal.py", "phnet_torch/losses/assign.py",
+            "phnet_torch/losses/criterion.py",
+            "phnet_torch/train/optimizer.py", "phnet_torch/train/state.py",
+            "phnet_torch/train/step.py", "phnet_torch/train/checkpoint.py",
+            "phnet_torch/train/trainer.py", "phnet_torch/train/__main__.py",
+            "phnet_torch/data/synthetic.py", "phnet_torch/data/loader.py",
+            "tools/torch_train_profile.py"} <= names
     assert (REPO / "phnet_torch" / "csrc" / "w8_matmul.cu").is_file()
 
 
@@ -49,7 +60,7 @@ def test_no_jax_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     cfg = vil100_config()
@@ -59,3 +70,7 @@ def test_entry_points_default_to_the_card():
         PHNet(cfg.model)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferencePipeline(cfg, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(cfg, 10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(cfg, None, [], str(tmp_path))

@@ -94,3 +94,50 @@ def test_router_scores_match_jax():
     assert got.shape == ref.shape == (2, A, 1)
     assert np.abs(got - ref).max() <= 1e-5
     assert got.min() >= 0.5
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+def test_chain_gradient_matches_jax(problem, streams):
+    """The chain under autograd (``RouterChainFn``: on the CPU the plain
+    chain forward, its recomputation differentiated backward) against
+    ``jax.vjp`` of the JAX chain: the gradients of taps, conv biases and
+    LayerNorm parameters (summed over the streams that share them) and of
+    x, within 1e-5 of each one's largest entry. The conv biases' gradient
+    is zero up to rounding (the LayerNorm after each conv cancels a
+    per-plane constant): both sides' are rounding noise of sums as large
+    as the taps' gradient's, so its bound is 1e-5 of that."""
+    feats, taps, biases, lnp = problem
+    x = np.concatenate([feats] * streams) * np.linspace(
+        0.5, 1.5, streams).repeat(A)[:, None, None].astype(np.float32)
+    cot = np.random.default_rng(5).normal(size=x.shape).astype(np.float32)
+
+    def jchain(xx, t, b, l):
+        return jax_chain(xx, jnp.tile(t, (streams, 1)),
+                         jnp.tile(b, (streams, 1)), l)
+
+    _, vjp = jax.vjp(jchain, *map(jnp.asarray, (x, taps, biases, lnp)))
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+    inputs = [torch.from_numpy(a.copy()).requires_grad_()
+              for a in (x, taps, biases, lnp)]
+    out = trc.router_chain(*inputs, BLOCKS)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(cot))
+    for t, r, name in zip(inputs, ref, ("x", "taps", "conv_bias",
+                                        "ln_params")):
+        scale = ref[1] if name == "conv_bias" else r
+        bound = 1e-5 * np.abs(scale).max()
+        assert np.abs(t.grad.numpy() - r).max() <= bound, name
+
+
+def test_chain_function_matches_plain_autograd(problem):
+    """The Function's gradients equal autograd straight through
+    ``router_chain_plain`` (what its backward recomputes), bit for bit;
+    x detached, as the router passes it."""
+    feats, taps, biases, lnp = map(torch.from_numpy, problem)
+    grads = []
+    for fn in (trc.router_chain, trc.router_chain_plain):
+        params = [p.clone().requires_grad_() for p in (taps, biases, lnp)]
+        fn(feats, *params, BLOCKS).square().sum().backward()
+        grads.append([p.grad for p in params])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
