@@ -26,34 +26,52 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (seeded random weights), 4 streams, one of them skipping every third
    tick, then a detach and an attach; the kernels' launch counters are
    zeroed just before and read just after, and must show that every tick
-   went through both kernels (lane NMS in one launch a tick);
+   went through both kernels (lane NMS once, the router chain three
+   times a tick);
 6. end to end: the same weights run a 2-frame clip on the card and on the
    CPU (plain versions there): routed predictions within 1e-3, keep sets
    equal; run with cuDNN's TF32 flag on, torch's default, which the model
    must override itself;
 7. the w8 matmul: the CUDA kernel against its plain version at the four
    generator products of a refine stage, 1 and 4 streams, and three
-   ragged shapes (max |diff| <= 1e-5 of max |plain|), timed beside the
+   ragged shapes (max |diff| <= 1e-5 of max |plain|, two calls
+   bit-equal), timed beside the
    cuBLAS bf16 GEMM of the same operands; per product its plan (tile
    width, K splits, CTAs), TFLOP/s, share of its bound and ratio to
    cuBLAS, and per stage the sums;
 8. the ``quantize="w8"`` server: phase 5's run with the w8 model; the
    counters must show every generator product going through the w8
-   kernel (4 per refine stage, 12 a tick); then the ``"int8"`` server,
+   kernel (4 per refine stage, 12 a tick, and no more); then the
+   ``"int8"`` server,
    whose outputs must be finite;
 9. w8 end to end: phase 6 with the w8 model (tolerance in
    :func:`phase_end_to_end`);
 10. the clip pipeline: ``InferencePipeline`` with the w8 model over two
     seeded 6-frame clips in chunks of 4, emitting ``.lines.txt`` files;
     the counters must show every frame going through all three kernels;
-11. training, card against CPU: the full-width model (seeded weights,
+11. lane NMS at OpenLane-V's shape: phase 3 with OL's lane layout (one
+    length field), 72 offsets, top_k 4, confidence 0.5 (the unrolled
+    O = 72 instance of the kernel);
+12. the w8 matmul at the multi-scale head's 13 products a frame (from
+    the preset's DynamicConv chains, ``w8_products``), 1 and 4 streams:
+    phase 7's checks (and two calls bit-equal) per product, the sums per
+    stage and per frame;
+13. ``openlane_config`` (``Router4OL``): phase 5's run at its full width
+    (memory window 5, which wraps more than three times over the 20
+    ticks), lane NMS once and the router chain three times a tick; phase
+    6 with this model (cuDNN's TF32 flag on); then served in w8 (12
+    products a tick through K3) and int8;
+14. ``openlane_multiscale_config`` (``Router4OLV2``): the same in f32
+    (lane NMS once a tick, no router chain: its routers are Conv1d) and
+    w8 (13 products a tick through K3);
+15. training, card against CPU: the full-width model (seeded weights,
     decoder dropout 0), one synthetic clip of 4 frames, one training step
     on the card and one on the CPU, with cuDNN's TF32 flag on (the step
     must turn it off itself): loss, gradient norm and a sample of gradient
     leaves within bounds taken from the CPU's own spread under a 1e-6
     relative perturbation of the frames, and the Hungarian matches of both
     branches equal (or no more flips than the perturbed CPU run shows);
-12. training throughput: the full-width model, 16-frame clips, B = 1 and
+16. training throughput: the full-width model, 16-frame clips, B = 1 and
     4, dropout 0.1, 2 warm-up and 5 timed steps on a fixed batch: step
     wall p50, clip-frames/s, device ms (CUDA events), peak memory, K2
     launches a step (3 a frame forward, again in the remat backward: the
@@ -61,16 +79,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     under ``torch.profiler`` for launches a step, busy share and the
     Hungarian solve's and K2's device ms; the loss finite and lower at
     step 5 than at step 1;
-13. the trainer: ``phnet_torch.train.trainer.train`` for one epoch of 2
+17. the trainer: ``phnet_torch.train.trainer.train`` for one epoch of 2
     steps on 2 synthetic 4-frame videos into a temporary directory, then
     resumed for a second epoch: both epochs' losses finite, and the resume
     restores step, epoch and the curriculum's ``max_skip``.
 
 Float32 throughout outside the quantized products. The model turns TF32
 off itself (``phnet_torch.device.full_f32``); the script also turns it off
-for the plain versions it holds the kernels against. The line before the last holds one JSON
-object per kernel (K2's with its launches in a training step beside its
-serving launches); the last line is ``{"ok": true, "device": {...}}``.
+for the plain versions it holds the kernels against. The line before the
+last holds one JSON object per kernel (K2's with its launches in a
+training step beside its serving launches; each kernel's launches and
+times on the OpenLane-V paths under ``openlane_*`` keys); the last line is
+``{"ok": true, "device": {...}}``.
 Without a card, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -185,12 +205,13 @@ NMS_KINDS = ("seeded", "tied", "all_valid", "all_invalid", "few_valid",
              "duplicates", "neg_zero", "nan_score")
 
 
-def nms_stream(kind, seed, a=240, n_offsets=36, conf=0.6):
+def nms_stream(kind, seed, a=240, n_offsets=36, conf=0.6, n_lengths=2):
     """One lane-NMS stream of one of ``NMS_KINDS``, from
-    :func:`make_problem`: routed predictions [A, 7 + O] in the VIL layout
-    (start_y; the length over n_strips; the xs over 767, an image 768
-    wide), scores [A] and the valid flags [A] of the proposals entry
-    (``scores >= conf``, and the -0.0 and NaN rows of those kinds)."""
+    :func:`make_problem`: routed predictions [A, 5 + n_lengths + O] in the
+    VIL layout (``n_lengths=2``) or OL's (1) (start_y; the length over
+    n_strips in column 5; the xs over 767, an image 768 wide), scores [A]
+    and the valid flags [A] of the proposals entry (``scores >= conf``,
+    and the -0.0 and NaN rows of those kinds)."""
     p, s, _ = make_problem(seed, a, n_offsets)
     rng = np.random.default_rng(seed + 1000)
     forced = []  # rows valid in the proposals entry whatever their score
@@ -222,24 +243,27 @@ def nms_stream(kind, seed, a=240, n_offsets=36, conf=0.6):
         p[n:3 * n], s[n:3 * n] = p[0:2 * n].copy(), s[0:2 * n].copy()
     elif kind != "seeded":
         raise KeyError(kind)
-    routed = rng.normal(size=(a, 7 + n_offsets))
+    col_xs = 5 + n_lengths
+    routed = rng.normal(size=(a, col_xs + n_offsets))
     routed[:, 2] = p[:, 2]
     routed[:, 5] = p[:, 4] / (n_offsets - 1)
-    routed[:, 7:] = p[:, 5:] / 767
+    routed[:, col_xs:] = p[:, 5:] / 767
     s = s.astype(np.float32)
     valid = (s >= np.float32(conf)) | np.isin(np.arange(a), forced)
     return routed.astype(np.float32), s, valid
 
 
-def nms_batch(torch, streams, a=240, n_offsets=36, conf=0.6, device="cuda"):
-    """routed [B, A, 7 + O], scores [B, A], valid [B, A] on ``device`` for
-    streams given as (kind, seed) pairs."""
-    made = [nms_stream(k, seed, a, n_offsets, conf) for k, seed in streams]
+def nms_batch(torch, streams, a=240, n_offsets=36, conf=0.6, device="cuda",
+              n_lengths=2):
+    """routed [B, A, 5 + n_lengths + O], scores [B, A], valid [B, A] on
+    ``device`` for streams given as (kind, seed) pairs."""
+    made = [nms_stream(k, seed, a, n_offsets, conf, n_lengths)
+            for k, seed in streams]
     return tuple(torch.from_numpy(np.stack(x)).to(device)
                  for x in zip(*made))
 
 
-def nms_ops(routed, valid, keep_idx, n_offsets, img_w, thresh):
+def nms_ops(routed, valid, keep_idx, n_offsets, img_w, thresh, col_xs=7):
     """f32 operations of the kernel's picks on this data: before each
     pick one key compare a candidate left (the argmax); after it, against
     every candidate left whose strip window overlaps, |x_i - x_j| summed
@@ -251,7 +275,7 @@ def nms_ops(routed, valid, keep_idx, n_offsets, img_w, thresh):
     end = np.trunc(start.astype(f32) + length - f32(0.5)
                    - (length - f32(1) < 0).astype(f32)).astype(np.int64)
     end = np.minimum(end, n_offsets - 1)
-    xs = routed[..., 7:7 + n_offsets] * f32(img_w - 1)
+    xs = routed[..., col_xs:col_xs + n_offsets] * f32(img_w - 1)
     ops = 0
     for b in range(routed.shape[0]):
         cand = valid[b].copy()
@@ -309,16 +333,23 @@ def phase_build():
                                    for g in trc.GROUPS))
 
 
-def phase_nms(torch, card):
+# lane NMS at each preset's shape: (O, top_k, confidence, n_lengths)
+NMS_LAYOUTS = {"vil": (36, 8, 0.6, 2), "openlane": (72, 4, 0.5, 1)}
+
+
+def phase_nms(torch, card, layout="vil"):
     """K1 through both entries against their plain versions: 10 streams of
-    every kind at two confidence thresholds, all four outputs bit-equal;
-    then the main path's shape (4 seeded streams, the model's softmax
-    scores), timed. Returns the numbers of the main path's shape."""
+    every kind at the layout's confidence threshold and at 0, all four
+    outputs bit-equal; then the main path's shape (4 seeded streams, the
+    model's softmax scores), timed. Returns the numbers of the main
+    path's shape."""
     from phnet_torch.config import LaneSpec
     from phnet_torch.ops import nms as tnms
 
-    a, n_off, img_w, thresh, top_k = 240, 36, 768, 50.0, 8
-    spec = LaneSpec(n_offsets=n_off)
+    n_off, top_k, conf, n_len = NMS_LAYOUTS[layout]
+    a, img_w, thresh = 240, 768, 50.0
+    spec = LaneSpec(n_offsets=n_off, n_lengths=n_len)
+    tag = "lane_nms" if layout == "vil" else f"lane_nms {layout}"
     streams = [(kind, seed) for seed, kind in enumerate(NMS_KINDS)]
     streams += [("seeded", 8), ("seeded", 9)]
 
@@ -336,18 +367,20 @@ def phase_nms(torch, card):
         names += tuple(f"lane_nms {n}" for n in names[1:])
         for name, g, r in zip(names, got, ref):
             if not torch.equal(g, r):
-                raise AssertionError(f"lane_nms kernel: {name} differs from "
+                raise AssertionError(f"{tag} kernel: {name} differs from "
                                      f"the plain version (conf {conf})")
         return got[2]
 
-    for conf in (0.6, 0.0):
-        num = check(*nms_batch(torch, streams, a, n_off, conf), conf)
-        print(f"[lane_nms] {len(streams)} streams x {a} ({', '.join(NMS_KINDS)}"
-              f", seeded x 2), conf {conf}: both entries bit-equal to plain "
-              f"in every output; kept {num.tolist()}")
+    for c in (conf, 0.0):
+        num = check(*nms_batch(torch, streams, a, n_off, c,
+                               n_lengths=n_len), c)
+        print(f"[{tag}] {len(streams)} streams x {a}, O = {n_off}, top_k "
+              f"{top_k} ({', '.join(NMS_KINDS)}, seeded x 2), conf {c}: "
+              f"both entries bit-equal to plain in every output; kept "
+              f"{num.tolist()}")
 
-    routed = nms_batch(torch, [("seeded", s) for s in range(4)])[0]
-    conf = 0.6
+    routed = nms_batch(torch, [("seeded", s) for s in range(4)], a, n_off,
+                       n_lengths=n_len)[0]
     scores = torch.softmax(routed[..., :2], dim=-1)[..., 1]  # a view
     valid = scores >= conf
     check(routed, scores, valid, conf)
@@ -367,19 +400,24 @@ def phase_nms(torch, card):
     nbytes = (4 * b * a * (dim + 1)  # routed, scores
               + 4 * b * top_k * dim + 8 * b * top_k + 8 * b + b * a)
     ops = nms_ops(routed.cpu().numpy(), valid.cpu().numpy(),
-                  keep_idx.cpu().numpy(), n_off, img_w, thresh)
+                  keep_idx.cpu().numpy(), n_off, img_w, thresh,
+                  spec.col_xs)
     bound_ms, bound_by = bound(nbytes, ops)
     first = K1_FIRST_DESIGN_MS
-    print(f"[lane_nms] {b} streams x {a} (the main path's shape, softmax "
-          f"scores): bit-equal to plain; kept {num_kept.tolist()}; device "
-          f"time: kernel {ms:.4f} ms (first design {first['kernel']} ms, "
-          f"{first['kernel'] / ms:.2f}x), proposals entry {entry_ms:.4f} ms,"
-          f" plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
-          f"{nbytes} B, {ops} ops; the kernel at {bound_ms / ms:.4f} of it);"
-          f" per call from Python: NMS step (softmax + nms_keeps) "
-          f"{step_ms:.4f} ms, nms_keeps {call_ms:.4f} ms (first design's "
-          f"whole wrapper {first['wrapper'][0]}-{first['wrapper'][1]} ms) "
-          f"[{card}]")
+    history = wrapper = ""
+    if layout == "vil":
+        history = (f" (first design {first['kernel']} ms, "
+                   f"{first['kernel'] / ms:.2f}x)")
+        wrapper = (f" (first design's whole wrapper {first['wrapper'][0]}-"
+                   f"{first['wrapper'][1]} ms)")
+    print(f"[{tag}] {b} streams x {a}, O = {n_off}, top_k {top_k} (the "
+          f"main path's shape, softmax scores): bit-equal to plain; kept "
+          f"{num_kept.tolist()}; device time: kernel {ms:.4f} ms{history}, "
+          f"proposals entry {entry_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} ops; the "
+          f"kernel at {bound_ms / ms:.4f} of it); per call from Python: NMS "
+          f"step (softmax + nms_keeps) {step_ms:.4f} ms, nms_keeps "
+          f"{call_ms:.4f} ms{wrapper} [{card}]")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -442,22 +480,31 @@ def phase_router(torch, card):
 
 def seeded_state_dict(torch, cfg, seed=0):
     """Full-width weights from ``seed``, on the CPU. The cls output kernels
-    of both branch heads are redrawn with a wide spread and a zero bias
-    (the init's 1e-3 puts every score at 0.5, below the 0.6 confidence
-    threshold, so NMS would keep nothing), and the valid-length bias is
-    raised so kept lanes span rows."""
+    of both branches' heads are redrawn with a wide spread and a zero bias
+    (the init's 1e-3 puts every score at 0.5, on or below the confidence
+    threshold, so NMS would keep nothing or everything), and the bias of
+    the length field (column 5 of the lane vector: VIL's valid length,
+    OL's only length) is raised so kept lanes span rows. The single head
+    (VIL, OL's ``Router4OL``) keeps its cls outputs in the merged heads'
+    ``out0``, the multi-scale head in ``cls_fir`` / ``cls_sec``."""
     from phnet_torch.models import PHNet
 
     model = PHNet(cfg.model, device="cpu")
     g = torch.Generator().manual_seed(seed)
     model.reset_parameters(g)
+    head = model.head
+    if cfg.model.head.variant == "multi":
+        outs = [(c.out.weight.T, c.out.bias, r.out.bias) for c, r in (
+            (head.cls_fir, head.reg_fir), (head.cls_sec, head.reg_sec))]
+    else:
+        outs = [(h.out0_kernel, h.out0_bias, h.out1_bias)
+                for h in (head.heads_fir, head.heads_sec)]
     with torch.no_grad():
-        for heads in (model.head.heads_fir, model.head.heads_sec):
-            k = heads.out0_kernel
+        for k, cls_bias, reg_bias in outs:  # k: [hidden, 2], a view
             k.copy_(torch.randn(k.shape, generator=g) * 3.0
                     / k.shape[0] ** 0.5)
-            heads.out0_bias.zero_()
-            heads.out1_bias[3] += 0.5
+            cls_bias.zero_()
+            reg_bias[3] += 0.5
     return model.state_dict()
 
 
@@ -468,9 +515,33 @@ def quantized(cfg, quantize):
         cfg.model, quantize=quantize))
 
 
-def phase_w8(torch, card):
-    """K3 against its plain version at the generator products of one
-    refine stage, 1 and 4 streams, and a ragged shape. Returns
+def w8_products(cfg):
+    """(name, K, N) of each w8 product of one frame of ``cfg``'s model:
+    per stage s, the collapsed chains as one product ``s{s} gen1`` and the
+    factored ones as two (``s{s} gen2_a``, ``s{s} gen2_b``), as
+    ``DynamicConv.combine_weights`` makes them."""
+    from phnet_torch.models import PHNet
+    from phnet_torch.models.dynamic_conv import collapse_wins
+
+    out = []
+    for s, dyn in enumerate(PHNet(cfg.model, device="meta").head.dyn_heads):
+        for chain in ("gen1", "gen2", "out"):
+            la, lb = getattr(dyn, chain + "_a"), getattr(dyn, chain + "_b")
+            if collapse_wins(la.in_features, la.out_features,
+                             lb.out_features):
+                out.append((f"s{s} {chain}", la.in_features,
+                            lb.out_features))
+            else:
+                out += [(f"s{s} {chain}_a", la.in_features, la.out_features),
+                        (f"s{s} {chain}_b", lb.in_features, lb.out_features)]
+    return out
+
+
+def phase_w8(torch, card, products=W8_PRODUCTS, tag="w8_matmul",
+             ragged=True):
+    """K3 against its plain version at ``products`` ((name, K, N); by
+    default the four of one VIL refine stage), 1 and 4 streams (M = 240 x
+    streams), and, with ``ragged``, three ragged shapes. Returns
     ``{(streams, product): numbers}``."""
     from phnet_torch.ops import quant as tq
     from phnet_torch.ops import w8_matmul as tw8
@@ -484,11 +555,12 @@ def phase_w8(torch, card):
     except (TypeError, RuntimeError, NotImplementedError):
         lib_out = "bf16"
     cases = [(b, name, 240 * b, k, n) for b in (1, 4)
-             for name, k, n in W8_PRODUCTS] + [
-                 (0, "ragged", 7, 300, 60), (0, "ragged", 241, 4608, 1024),
-                 (0, "ragged", 960, 72, 8192)]
+             for name, k, n in products]
+    if ragged:
+        cases += [(0, "ragged", 7, 300, 60), (0, "ragged", 241, 4608, 1024),
+                  (0, "ragged", 960, 72, 8192)]
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"[w8_matmul] dynamic shared memory a CTA: " + ", ".join(
+    print(f"[{tag}] dynamic shared memory a CTA: " + ", ".join(
         f"{bn}-wide tiles {tw8.smem_bytes(bn)} B" for bn in (64, 128, 256))
           + f"; {n_sms} SMs")
     out = {}
@@ -506,6 +578,10 @@ def phase_w8(torch, card):
         if not norm_err <= 1e-5:
             raise AssertionError(f"w8_matmul kernel at {m}x{k}x{n}: max "
                                  f"|diff| {norm_err} of max |plain| > 1e-5")
+        again = tw8.w8_matmul(x, wq, sw)
+        if not torch.equal(again, got):
+            raise AssertionError(f"w8_matmul kernel at {m}x{k}x{n}: two "
+                                 f"calls differ")
         ms = device_ms(torch, lambda: tw8.w8_matmul(x, wq, sw))
         plain_ms = device_ms(torch, lambda: tq.w8_matmul_prequant(x, wq, sw))
         xb, wb = x.bfloat16(), wq.bfloat16()
@@ -517,12 +593,13 @@ def phase_w8(torch, card):
         nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n  # x, wq, sw; out
         bound_ms, bound_by = bound(nbytes, 2 * m * k * n, BF16_FLOPS)
         plan = tw8.w8_plan(m, k, n, n_sms)
-        print(f"[w8_matmul] {name} B={streams} [{m}, {k}] @ [{k}, {n}]: max "
-              f"|diff| {err:.3g} ({norm_err:.3g} of max |plain|); device "
+        print(f"[{tag}] {name} B={streams} [{m}, {k}] @ [{k}, {n}]: max "
+              f"|diff| {err:.3g} ({norm_err:.3g} of max |plain|), two calls "
+              f"bit-equal; device "
               f"time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.6f} ms ({bound_by}), cuBLAS bf16 GEMM "
               f"({lib_out} out) {library_ms:.4f} ms [{card}]")
-        print(f"[w8_matmul] {name} B={streams}: {plan.block_n}-wide tiles, "
+        print(f"[{tag}] {name} B={streams}: {plan.block_n}-wide tiles, "
               f"{plan.splits} K split(s), {plan.ctas} CTAs; "
               f"{2 * m * k * n / ms / 1e9:.1f} TFLOP/s, "
               f"{bound_ms / ms:.3f} of its bound, {ms / library_ms:.2f}x "
@@ -531,20 +608,28 @@ def phase_w8(torch, card):
                                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                                 "bound_by": bound_by,
                                 "library_ms": library_ms}
+    groups = {}  # a stage's products; VIL's names carry no stage
+    for name, _, _ in products:
+        groups.setdefault(name.split()[0] if " " in name else "stage",
+                          []).append(name)
+    if len(groups) > 1:
+        groups["frame"] = [name for name, _, _ in products]
     for streams in (1, 4):
-        st = stage_sum(out, streams)
-        print(f"[w8_matmul] stage of 4 products at B={streams}: kernel "
-              f"{st['ms']:.4f} ms, cuBLAS {st['library_ms']:.4f} ms "
-              f"({st['ms'] / st['library_ms']:.2f}x), bound "
-              f"{st['bound_ms']:.6f} ms ({st['bound_ms'] / st['ms']:.3f} of "
-              f"it) [{card}]")
+        for group, names in groups.items():
+            st = stage_sum(out, streams, names)
+            print(f"[{tag}] {group} ({len(names)} products) at B={streams}: "
+                  f"kernel {st['ms']:.4f} ms, cuBLAS {st['library_ms']:.4f} "
+                  f"ms ({st['ms'] / st['library_ms']:.2f}x), bound "
+                  f"{st['bound_ms']:.6f} ms ({st['bound_ms'] / st['ms']:.3f} "
+                  f"of it) [{card}]")
     return out
 
 
-def stage_sum(w8, streams):
-    """The four products of one refine stage at ``streams``, summed: the
-    numbers of the kernels line for K3."""
-    rows = [w8[(streams, name)] for name, _, _ in W8_PRODUCTS]
+def stage_sum(w8, streams, names=tuple(n for n, _, _ in W8_PRODUCTS)):
+    """The products ``names`` (by default the four of one VIL refine
+    stage) at ``streams``, summed: the numbers of the kernels line for
+    K3."""
+    rows = [w8[(streams, name)] for name in names]
     top = max(rows, key=lambda r: r["bound_ms"])
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
@@ -552,22 +637,39 @@ def stage_sum(w8, streams):
                 bound_by=top["bound_by"])
 
 
+def preset_config(preset, quantize="none"):
+    """``phnet_torch.config``'s preset of that name (``vil100_config``,
+    ``openlane_config``, ``openlane_multiscale_config``) in ``quantize``."""
+    from phnet_torch import config
+
+    return quantized(getattr(config, preset)(), quantize)
+
+
 def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
-                  warmup=2):
-    from phnet_torch.config import vil100_config
+                  warmup=2, preset="vil100_config"):
+    """``StreamingServer`` at the preset's full width, 4 streams, one of
+    them skipping every third tick, then a detach and an attach; the
+    kernels' counters are zeroed just before and read just after. Every
+    tick must go through K1 once, K2 three times a tick where the head has
+    the router chain (the single-scale heads) and never where it has not,
+    and K3 once a generator product in w8 and never otherwise. Returns the
+    launches and the tick's numbers."""
     from phnet_torch.ops import nms as tnms
     from phnet_torch.ops import router_chain as trc
     from phnet_torch.ops import w8_matmul as tw8
     from phnet_torch.serving import StreamingServer
 
-    cfg = quantized(vil100_config(), quantize)
+    cfg = preset_config(preset, quantize)
     mcfg = cfg.model
-    tag = "serving" if quantize == "none" else f"serving {quantize}"
+    vil = preset == "vil100_config"
+    name = "serving" if vil else f"serving {preset.replace('_config', '')}"
+    tag = name if quantize == "none" else f"{name} {quantize}"
     gc.collect()  # earlier phases' tensors out of the peak below
     torch.cuda.empty_cache()
     getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
     server = StreamingServer(cfg, state_dict, max_streams=4)
-    sids = [server.attach(ori_img_h=1080, cut_height=378) for _ in range(4)]
+    geometry = dict(ori_img_h=1080, cut_height=378) if vil else {}
+    sids = [server.attach(**geometry) for _ in range(4)]
     rng = np.random.default_rng(3)
     shape = (mcfg.img_h, mcfg.img_w, 3)
     torch.cuda.synchronize()
@@ -593,7 +695,7 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
             frames_done += nf
         n_lanes += sum(len(v) for v in lanes.values())
     server.detach(sids[1])
-    sids[1] = server.attach()
+    sids[1] = server.attach(**geometry)
     for i in range(2):
         _, kept, valid, lanes, _ = tick(i, sids)
         n_ticks += 1
@@ -601,24 +703,27 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
                   tw8.w8_matmul.launches)
     peak = torch.cuda.max_memory_allocated()
 
-    if tuple(kept.shape) != (4, 8, mcfg.lane.dim) or tuple(valid.shape) != (
-            4, 8):
+    top_k, dim = mcfg.test.nms_topk, mcfg.lane.dim
+    if tuple(kept.shape) != (4, top_k, dim) or tuple(valid.shape) != (
+            4, top_k):
         raise AssertionError(f"kept {tuple(kept.shape)} / valid "
-                             f"{tuple(valid.shape)}, want [4, 8, 43] / [4, 8]")
+                             f"{tuple(valid.shape)}, want [4, {top_k}, "
+                             f"{dim}] / [4, {top_k}]")
     if not torch.isfinite(kept).all():
         raise AssertionError("non-finite kept rows")
     if not (server.memory.values.isfinite().all()):
         raise AssertionError("non-finite memory")
-    if k1 != n_ticks or k2 < 3 * n_ticks:
+    chain_per_tick = 0 if mcfg.head.variant == "multi" else 3
+    if k1 != n_ticks or k2 != chain_per_tick * n_ticks:
         raise AssertionError(f"kernel launches lane_nms {k1}, router_chain "
-                             f"{k2} over {n_ticks} ticks: the main path did "
-                             f"not go through both kernels (lane NMS once a "
-                             f"tick)")
-    per_tick = 4 * mcfg.head.refine_layers  # generator products a tick
-    w8_ok = k3 >= per_tick * n_ticks if quantize == "w8" else k3 == 0
-    if not w8_ok:
+                             f"{k2} over {n_ticks} ticks: want lane NMS once "
+                             f"and the router chain {chain_per_tick} times a "
+                             f"tick")
+    per_tick = len(w8_products(cfg)) if quantize == "w8" else 0
+    if k3 != per_tick * n_ticks:
         raise AssertionError(f"w8_matmul launches {k3} over {n_ticks} ticks "
-                             f"with quantize={quantize!r}")
+                             f"with quantize={quantize!r}, want {per_tick} "
+                             f"a tick")
     n_kept = int(server.memory.mask[..., :-1].sum())  # not the negatives
     if n_kept == 0:
         raise AssertionError("NMS kept nothing: the smoke weights give the "
@@ -626,21 +731,27 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
     w = np.array(walls) * 1e3
     w8_part = f", w8_matmul {k3}" if quantize != "none" else ""
     print(f"[{tag}] {n_ticks} ticks (ticks {warmup}..{warmup + ticks - 1} "
-          f"timed) of 4 streams at {mcfg.img_h}x{mcfg.img_w}, stream 3 "
-          f"skipping every third tick, then detach/attach; launches "
-          f"lane_nms {k1}, router_chain {k2}{w8_part}; kept lanes in memory "
-          f"{n_kept}, decoded lanes {n_lanes}")
-    print(f"[{tag}] tick p50 {np.percentile(w, 50):.3f} ms, p99 "
-          f"{np.percentile(w, 99):.3f} ms, {frames_done / w.sum() * 1e3:.2f}"
-          f" frames/s aggregate, peak device memory "
-          f"{peak / 2**20:.1f} MiB [{card}]")
+          f"timed) of 4 streams at {mcfg.img_h}x{mcfg.img_w}, memory window "
+          f"{server.window}, stream 3 skipping every third tick, then "
+          f"detach/attach; launches lane_nms {k1}, router_chain {k2}"
+          f"{w8_part}; kept lanes in memory {n_kept}, decoded lanes "
+          f"{n_lanes}")
+    numbers = {"tick_p50_ms": float(np.percentile(w, 50)),
+               "tick_p99_ms": float(np.percentile(w, 99)),
+               "frames_per_s": frames_done / w.sum() * 1e3,
+               "peak_mib": peak / 2 ** 20}
+    print(f"[{tag}] tick p50 {numbers['tick_p50_ms']:.3f} ms, p99 "
+          f"{numbers['tick_p99_ms']:.3f} ms, {numbers['frames_per_s']:.2f} "
+          f"frames/s aggregate, peak device memory "
+          f"{numbers['peak_mib']:.1f} MiB [{card}]")
     print(f"[{tag}] stats {json.dumps(server.stats())}")
-    return {"lane_nms": k1, "router_chain": k2, "w8_matmul": k3}
+    return {"lane_nms": k1, "router_chain": k2, "w8_matmul": k3, **numbers}
 
 
-def phase_end_to_end(torch, card, state_dict, quantize="none"):
-    """The same weights, a 2-frame clip, on the card and on the CPU.
-    Float32: routed predictions within 1e-3, keep sets equal.
+def phase_end_to_end(torch, card, state_dict, quantize="none",
+                     preset="vil100_config"):
+    """The same weights, a 2-frame clip of the preset, on the card and on
+    the CPU. Float32: routed predictions within 1e-3, keep sets equal.
 
     ``"w8"``: the card and the CPU round slightly different f32
     activations to bf16, so rare elements land one bf16 ulp apart, as the
@@ -655,12 +766,13 @@ def phase_end_to_end(torch, card, state_dict, quantize="none"):
     lengths and xs (columns 2:) within 1e-3 at the 99th percentile and
     1e-1 at most; the cls logits within 1e-1 at the 99th percentile and 1
     at most."""
-    from phnet_torch.config import vil100_config
     from phnet_torch.models import PHNet
     from phnet_torch.models.phnet import init_memory
 
-    mcfg = quantized(vil100_config(), quantize).model
-    tag = "end-to-end" if quantize == "none" else f"end-to-end {quantize}"
+    mcfg = preset_config(preset, quantize).model
+    tag = "end-to-end" if preset == "vil100_config" else (
+        f"end-to-end {preset.replace('_config', '')}")
+    tag = tag if quantize == "none" else f"{tag} {quantize}"
     frames = np.random.default_rng(4).normal(
         size=(1, 2, mcfg.img_h, mcfg.img_w, 3)).astype(np.float32)
     runs = {"cuda": frames, "cpu": frames}
@@ -696,7 +808,7 @@ def phase_end_to_end(torch, card, state_dict, quantize="none"):
         if not (torch.equal(n_gpu, n_cpu) and torch.equal(k_gpu, k_cpu)):
             raise AssertionError(f"card vs CPU keeps differ: "
                                  f"{k_gpu.tolist()} vs {k_cpu.tolist()}")
-        print(f"[end-to-end] 2-frame clip card vs CPU: routed max |diff| "
+        print(f"[{tag}] 2-frame clip card vs CPU: routed max |diff| "
               f"{err:.3g} (<= 1e-3), num_kept {n_gpu.flatten().tolist()} "
               f"equal, keep sets equal; cuDNN TF32 flag "
               f"{torch.backends.cudnn.allow_tf32} around the model [{card}]")
@@ -780,6 +892,29 @@ def phase_pipeline(torch, card, state_dict, quantize="w8", clips=2,
           f"lane_nms {k1}, router_chain {k2}, w8_matmul {k3}; "
           f"{stats['fps']:.2f} frames/s [{card}]")
     return {"lane_nms": k1, "router_chain": k2, "w8_matmul": k3}
+
+
+def phase_openlane(torch, card):
+    """Both OpenLane-V presets at full width: ``openlane_config``
+    (``Router4OL``) served in f32, card against CPU end to end with
+    cuDNN's TF32 flag on, then served in w8 and int8;
+    ``openlane_multiscale_config`` (``Router4OLV2``) the same in f32 and
+    w8. Returns ``{(preset, quantize): phase_serving's numbers}``."""
+    out = {}
+    for preset, modes in (("openlane_config", ("none", "w8", "int8")),
+                          ("openlane_multiscale_config", ("none", "w8"))):
+        state_dict = seeded_state_dict(torch, preset_config(preset))
+        for mode in modes:
+            out[(preset, mode)] = phase_serving(torch, card, state_dict,
+                                                mode, preset=preset)
+            if mode != "none":
+                continue
+            torch.backends.cudnn.allow_tf32 = True  # a user's default
+            try:
+                phase_end_to_end(torch, card, state_dict, preset=preset)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+    return out
 
 
 TRAIN_LEAVES = (  # gradient leaves held card against CPU, one a layer
@@ -1133,6 +1268,11 @@ def main() -> int:
     phase_serving(torch, card, state_dict, quantize="int8")
     phase_end_to_end(torch, card, state_dict, quantize="w8")
     phase_pipeline(torch, card, state_dict)
+    nms_ol = phase_nms(torch, card, layout="openlane")
+    ms_products = w8_products(preset_config("openlane_multiscale_config"))
+    w8_ms = phase_w8(torch, card, ms_products,
+                     tag="w8_matmul openlane_multiscale", ragged=False)
+    ol = phase_openlane(torch, card)
     torch.backends.cudnn.allow_tf32 = True  # a user's default
     try:
         phase_train_parity(torch, card)
@@ -1141,6 +1281,27 @@ def main() -> int:
     training = phase_train_throughput(torch, card)
     phase_trainer(torch, card)
 
+    w8_ms_frame = stage_sum(w8_ms, 4, [name for name, _, _ in ms_products])
+    single, multi = "openlane_config", "openlane_multiscale_config"
+    ol_keys = {  # the kernels' numbers on the OpenLane-V paths
+        "lane_nms": {"openlane_launches": ol[(single, "none")]["lane_nms"],
+                     "openlane_multiscale_launches":
+                         ol[(multi, "none")]["lane_nms"],
+                     "openlane_ms": nms_ol["ms"],
+                     "openlane_plain_ms": nms_ol["plain_ms"],
+                     "openlane_bound_ms": nms_ol["bound_ms"]},
+        "router_chain": {"openlane_launches":
+                             ol[(single, "none")]["router_chain"],
+                         "openlane_multiscale_launches":
+                             ol[(multi, "none")]["router_chain"]},
+        "w8_matmul": {"openlane_launches": ol[(single, "w8")]["w8_matmul"],
+                      "openlane_multiscale_launches":
+                          ol[(multi, "w8")]["w8_matmul"],
+                      "openlane_multiscale_ms": w8_ms_frame["ms"],
+                      "openlane_multiscale_library_ms":
+                          w8_ms_frame["library_ms"],
+                      "openlane_multiscale_bound_ms":
+                          w8_ms_frame["bound_ms"]}}
     kernels = []
     for name, numbers, source, count in (
             ("lane_nms", dict(nms, library_ms=None),
@@ -1160,6 +1321,7 @@ def main() -> int:
             "library_ms": numbers["library_ms"]})
         if name == "router_chain":  # its launches in a B=1 training step
             kernels[-1]["training_launches"] = training[1]["k2_launches"]
+        kernels[-1].update(ol_keys[name])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

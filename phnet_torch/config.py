@@ -5,20 +5,24 @@ the port runs, so one set of keyword arguments builds the same model in
 both packages: VIL-100 inference and float32 VIL-100 training
 (:class:`TrainConfig`, :class:`LossConfig`, ``HeadConfig.decoder_dropout``,
 ``ModelConfig.train_assigner`` with the Hungarian assigner only, and
-``ModelConfig.remat_frames``). Fields that only selected TPU formulations
-of the same function (stem packing, router chain layouts, stage-0
-hoisting, remat policies, scan unroll, the flat-matrix AdamW) are gone,
-and so are fields of variants the port does not have yet (bf16 compute,
-the OpenLane heads, the dynamic-k assigner, the VIL-100 loader's
-settings): an unknown keyword fails when the config is built, and a value
-of a variant not yet ported fails in ``__post_init__``.
+``ModelConfig.remat_frames``), and OpenLane-V inference with both of its
+heads (:func:`openlane_config`, the reference's ``Router4OL``, and
+:func:`openlane_multiscale_config`, ``Router4OLV2``). Fields that only
+selected TPU formulations of the same function (stem packing, router
+chain layouts and kernels, stage-0 hoisting, dual-branch head stacking,
+remat policies, scan unroll, the flat-matrix AdamW) are gone, and so are
+fields of variants the port does not have yet (bf16 compute, the
+dynamic-k assigner, the loaders' settings): an unknown keyword fails when
+the config is built, and a value of a variant not yet ported (the
+prior-propagation head of :func:`openlane_propagate_config`, a training
+assigner other than Hungarian) fails in ``__post_init__``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 QUANTIZE_MODES = ("none", "int8", "w8")
 
@@ -87,8 +91,11 @@ class BackboneConfig:
 
 @dataclass(frozen=True)
 class NeckConfig:
+    """``out_channels`` is one width for every level or one per level (the
+    multi-scale head's ``fpnV2``)."""
+
     in_channels: Tuple[int, ...] = (128, 256, 512)
-    out_channels: int = 64
+    out_channels: Union[int, Tuple[int, ...]] = 64
     num_outs: int = 3
 
 
@@ -104,17 +111,33 @@ class HeadConfig:
     decoder_heads: int = 8
     decoder_ffn_dim: int = 256
     decoder_dropout: float = 0.1  # the decoder's five sites, training only
+    # the second branch's anchor positions: "sine" table (VIL) or a
+    # "learned" [A, d] embedding (OL, Router4OL.py:110)
+    pos_encoding: str = "sine"
     pos_temperature: float = 16.0  # sine positional table
     pos_normalize: bool = True
+    # OL predicts the offsets with a head of their own (Router4OL.py:78-83);
+    # VIL folds them into the geometry head's output
+    separate_offset_head: bool = False
     router_reduction: int = 4
     router_blocks: int = 4
     dyn_dim_factor: int = 2
     dyn_param_reduction: int = 8
     dyn_out_expand: int = 6
+    # "single" (RouterV4 / Router4OL) or "multi" scale (Router4OLV2:
+    # per-stage sample points over per-stage channels)
+    variant: str = "single"
+    # Router4OLV3's cross-frame prior propagation: not ported yet
+    propagate_priors: bool = False
+    ms_sample_points: Tuple[int, ...] = (24, 48, 96)
+    ms_channels: Tuple[int, ...] = (64, 32, 16)
 
     @property
     def attn_dim(self) -> int:
-        return 2 * self.fc_hidden_dim
+        """Width of the memorized second-branch features: the decode width
+        with the positions concatenated (single scale) or added (multi)."""
+        return (self.fc_hidden_dim if self.variant == "multi"
+                else 2 * self.fc_hidden_dim)
 
 
 @dataclass(frozen=True)
@@ -148,6 +171,12 @@ class ModelConfig:
     test: TestParams = field(default_factory=TestParams)
     max_lanes: int = 8
     routing: str = "hard"  # "hard" (VIL) | "soft" (OL)
+    # original-image geometry of the datasets (read by their emitters and
+    # loaders, not by the model): VIL crops the top cut_scale * H, OL a
+    # fixed crop_size rows of its org_size images
+    cut_scale: float = 0.35
+    crop_size: int = 0
+    org_size: Optional[Tuple[int, int]] = None
     # inference-only quantization of the DynamicConv generator chains
     # (ops/quant.py): "w8" = int8 weights dequantized into a bf16 product
     # (the w8 matmul kernel on the card), "int8" = int8 weights and
@@ -171,6 +200,26 @@ class ModelConfig:
         if self.train_assigner != "hungarian":
             raise ValueError(f"train_assigner {self.train_assigner!r} is not "
                              f"ported yet; the port trains with 'hungarian'")
+        h = self.head
+        if h.propagate_priors:
+            raise ValueError("the prior-propagation head (Router4OLV3, "
+                             "propagate_priors=True) is not ported yet")
+        if h.variant not in ("single", "multi"):
+            raise ValueError(f"head variant must be 'single' or 'multi', got "
+                             f"{h.variant!r}")
+        if h.pos_encoding not in ("sine", "learned"):
+            raise ValueError(f"pos_encoding must be 'sine' or 'learned', got"
+                             f" {h.pos_encoding!r}")
+        if h.variant == "multi" and not (
+                self.lane.n_lengths == 1
+                and len(h.ms_sample_points) == len(h.ms_channels)
+                == h.refine_layers
+                and len({p * c for p, c in zip(h.ms_sample_points,
+                                               h.ms_channels)}) == 1):
+            raise ValueError("the multi-scale head takes the OL lane layout "
+                             "(n_lengths=1) and one (sample points, "
+                             "channels) pair a stage with a constant "
+                             "product")
 
     @property
     def n_offsets(self) -> int:
@@ -252,6 +301,7 @@ def vil100_config(**overrides) -> Config:
         test=TestParams(conf_threshold=0.6, nms_thres=50.0, nms_topk=8),
         max_lanes=8,
         routing="hard",
+        cut_scale=0.35,
     )
     train = TrainConfig(
         epochs=50,
@@ -262,4 +312,75 @@ def vil100_config(**overrides) -> Config:
                         focal_alpha=(0.5, 0.5), style="blend_all"),
     )
     cfg = Config(model=model, train=train)
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def openlane_config(n_offsets: int = 72, **overrides) -> Config:
+    """OpenLane-V configuration (reference ``options/options4OL.py`` with
+    the 72 offsets of ``options/options4OLV3.py``): the OL lane layout, a
+    learned positional embedding, a separate offset head, soft routing, a
+    memory window of 5 frames, 4 lanes kept at confidence 0.5."""
+    model = ModelConfig(
+        lane=LaneSpec(n_offsets=n_offsets, n_lengths=1),
+        backbone=BackboneConfig(),
+        neck=NeckConfig(in_channels=(128, 256, 512), out_channels=64,
+                        num_outs=3),
+        head=HeadConfig(pos_encoding="learned", separate_offset_head=True),
+        memory=MemoryConfig(window=5),
+        test=TestParams(conf_threshold=0.5, nms_thres=50.0, nms_topk=4),
+        max_lanes=4,
+        routing="soft",
+        cut_scale=0.0,
+        crop_size=480,
+        org_size=(1280, 1920),
+    )
+    train = TrainConfig(
+        epochs=50,
+        learning_rate=5e-4,
+        weight_decay=5e-4,
+        epochs_per_increment=15,
+        skip_increment=1,
+        loss=LossConfig(cls_weight=8.0, reg_weight=0.5, iou_weight=1.5,
+                        focal_alpha=(0.1, 0.9), style="blend_cls",
+                        use_lane_iou=True),
+    )
+    cfg = Config(model=model, train=train)
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def openlane_multiscale_config(n_offsets: int = 72, **overrides) -> Config:
+    """Multi-scale OpenLane-V configuration (reference ``Router4OLV2``, run
+    by ``testOLV3.py`` with ``options/options4OLV3.py``): neck levels
+    (64, 128, 256) -> (16, 32, 64) from the backbone's first three stages,
+    per-stage sample points (24, 48, 96) over channels (64, 32, 16), a
+    256-wide decode and decoder, hard routing at inference."""
+    base = openlane_config(n_offsets=n_offsets)
+    model = dataclasses.replace(
+        base.model,
+        backbone=BackboneConfig(out_indices=(0, 1, 2)),
+        neck=NeckConfig(in_channels=(64, 128, 256), out_channels=(16, 32, 64),
+                        num_outs=3),
+        head=HeadConfig(variant="multi", fc_hidden_dim=256,
+                        decoder_ffn_dim=512, pos_encoding="sine",
+                        pos_temperature=64.0, pos_normalize=False,
+                        separate_offset_head=False,
+                        ms_sample_points=(24, 48, 96),
+                        ms_channels=(64, 32, 16)),
+        routing="hard",
+    )
+    cfg = dataclasses.replace(base, model=model)
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def openlane_propagate_config(n_offsets: int = 72, **overrides) -> Config:
+    """Prior-propagation OpenLane-V configuration (reference
+    ``Router4OLV3.py``): the OL preset with ``propagate_priors`` and a
+    one-frame memory. The variant is not ported yet, so building it raises
+    ``ValueError``."""
+    base = openlane_config(n_offsets=n_offsets)
+    model = dataclasses.replace(
+        base.model,
+        head=dataclasses.replace(base.model.head, propagate_priors=True),
+        memory=MemoryConfig(window=1))
+    cfg = dataclasses.replace(base, model=model)
     return dataclasses.replace(cfg, **overrides) if overrides else cfg

@@ -11,13 +11,15 @@ leaves are laid out for PyTorch:
   the DynamicConv ``gen1_a .. out_b`` pairs, the router's ``Dense_0/1`` and
   the fused ``qkv`` / ``q`` + ``kv`` attention projections, whose packed
   output order the port keeps);
-* conv ``kernel`` HWIO -> ``weight`` OIHW;
-* BatchNorm and LayerNorm ``scale`` -> ``weight``; BatchNorm ``mean`` and
-  ``var`` stay buffers of those names;
+* conv ``kernel`` HWIO -> ``weight`` OIHW, and a 1-D conv's (the
+  multi-scale router's ``conv1`` / ``conv2``) ``[k, in, out]`` -> ``[out,
+  in, k]``;
+* BatchNorm, LayerNorm and GroupNorm ``scale`` -> ``weight``; BatchNorm
+  ``mean`` and ``var`` stay buffers of those names;
 * everything else keeps its layout: the merged branch heads'
   ``fc{i}_kernel [n, din, h]`` / ``out{i}_kernel [h, d_o]``, the router's
-  ``taps``, ``conv_bias`` and ``ln_params``, ``prior_embeddings`` and
-  ``pro_embedding``.
+  ``taps``, ``conv_bias`` and ``ln_params``, ``prior_embeddings``,
+  ``pro_embedding`` and the learned ``pos_encoding/embedding``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ _PATH_RULES = [
     (r"Conv_(\d+)", r"conv\1"),
     (r"lateral_(\d+)", r"lateral/\1"),
     (r"fpn_(\d+)", r"fpn/\1"),
+    (r"upsample_(\d+)", r"upsample/\1"),
     (r"dyn_head_(\d+)", r"dyn_heads/\1"),
     (r"router_(\d+)", r"routers/\1"),
     (r"Dense_(\d+)", r"dense\1"),
@@ -53,14 +56,15 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
 
 def torch_key(path: Tuple[str, ...], ndim: int) -> Tuple[str, str]:
     """(state_dict key, layout change) of one flax leaf. The change is
-    "linear" ([in, out] -> [out, in]), "conv" (HWIO -> OIHW) or ""."""
+    "linear" ([in, out] -> [out, in]), "conv1d" ([k, in, out] -> [out, in,
+    k]), "conv" (HWIO -> OIHW) or ""."""
     joined = "/".join(path)
     for pattern, repl in _PATH_RULES:
         joined = re.sub(pattern, repl, joined)
     *mod, leaf = joined.split("/")
     change = ""
     if leaf == "kernel":
-        leaf, change = "weight", {2: "linear", 4: "conv"}[ndim]
+        leaf, change = "weight", {2: "linear", 3: "conv1d", 4: "conv"}[ndim]
     elif leaf == "scale":
         leaf = "weight"
     return ".".join(mod + [leaf]), change
@@ -69,6 +73,8 @@ def torch_key(path: Tuple[str, ...], ndim: int) -> Tuple[str, str]:
 def _relayout(x: np.ndarray, change: str) -> np.ndarray:
     if change == "linear":
         return x.T
+    if change == "conv1d":
+        return x.transpose(2, 1, 0)
     if change == "conv":
         return x.transpose(3, 2, 0, 1)
     return x
@@ -85,7 +91,7 @@ def plan(shapes: Mapping) -> Dict[str, Tuple[Tuple[str, ...], Tuple[int, ...]]]:
         if key in out:
             raise ValueError(f"{'/'.join(path)} and "
                              f"{'/'.join(out[key][0])} both map to {key}")
-        if change == "linear":
+        if change in ("linear", "conv1d"):
             shape = shape[::-1]
         elif change == "conv":
             shape = (shape[3], shape[2], shape[0], shape[1])

@@ -5,14 +5,21 @@ Port of ``phnet_tpu/models/dynamic_conv.py`` (reference
 [C, 2C] weight; the pooled anchor feature [P, C] goes through it,
 LayerNorm, ReLU, then through a second generated [2C, C] weight
 conditioned on the intermediate, LayerNorm, ReLU, and a flattening output
-MLP with a final LayerNorm. LayerNorms use flax's epsilon, 1e-6.
+MLP with a final LayerNorm. LayerNorms use flax's epsilon, 1e-6. The
+multi-scale head's form (``DynamicConvV2``, ``dynamic_head.py:61``) maps
+the stage's C channels into a shared ``out_dim`` (256) through an
+``out_hidden``-wide (512) output MLP, from a ``pro_dim``-wide (256)
+proposal embedding, with ``param_reduction=4``.
 
 Each generator is two stacked linears with no activation between them.
 Where ``hid * (in + out) >= in * out`` the pair is served as one product
 with the pre-combined matrix (:func:`combine_weights`, computed once
 outside the frame loop): on VIL the first generator (64 -> 1024 -> 8192)
 and the output MLP (2304 -> 384 -> 64) collapse; the second generator
-(4608 -> 1024 -> 8192) stays factored. The second generated weight is in
+(4608 -> 1024 -> 8192) stays factored. On the multi-scale OL preset the
+output MLPs (1536 -> 512 -> 256) and the first generators of stages 0 and
+1 collapse, and every second generator and stage 2's first generator
+(256 -> 128 -> 512) stay factored. The second generated weight is in
 the natural d-major order (the JAX package's c-major permutation is a
 layout choice of the TPU; a column permutation commutes with per-column
 quantization, so it is the same function in the quantized modes too).
@@ -24,7 +31,8 @@ step, after the frame loop, as in the JAX package.
 ``quantize="w8"`` / ``"int8"`` (inference only, ``ops/quant.py``) turns
 every chain product into an int8 one against kernels quantized per output
 column once per weight set: on VIL four products per stage (gen1
-collapsed, gen2 factored into two, out collapsed). ``"w8"`` runs them
+collapsed, gen2 factored into two, out collapsed), on the multi-scale
+OL preset 13 a frame. ``"w8"`` runs them
 through the w8 matmul kernel on the card; ``"int8"`` quantizes the
 activations per row and accumulates in int32.
 """
@@ -54,26 +62,29 @@ def collapse_wins(in_dim: int, hid: int, out_dim: int) -> bool:
 class DynamicConv(nn.Module):
     def __init__(self, feat_size: int = 36, hidden_dim: int = 64,
                  dim_factor: int = 2, param_reduction: int = 8,
-                 out_expand: int = 6, pro_dim: int = 0,
-                 quantize: str = "none"):
+                 out_expand: int = 6, out_dim: int = 0, out_hidden: int = 0,
+                 pro_dim: int = 0, quantize: str = "none"):
+        """``out_dim`` 0 means C and ``out_hidden`` 0 means C *
+        ``out_expand``; ``pro_dim`` 0 means ``out_dim``."""
         super().__init__()
         self.quantize = check_quantize(quantize)
         c = hidden_dim
         d = c * dim_factor
         num_params = c * d
         hid = num_params // param_reduction
-        out_hidden = c * out_expand
-        pro_dim = pro_dim or c
+        out_dim = out_dim or c
+        out_hidden = out_hidden or c * out_expand
+        pro_dim = pro_dim or out_dim
         self.feat_size, self.c, self.d = feat_size, c, d
         self.gen1_a = nn.Linear(pro_dim, hid)
         self.gen1_b = nn.Linear(hid, num_params)
         self.gen2_a = nn.Linear(feat_size * d, hid)
         self.gen2_b = nn.Linear(hid, num_params)
         self.out_a = nn.Linear(feat_size * c, out_hidden)
-        self.out_b = nn.Linear(out_hidden, c)
+        self.out_b = nn.Linear(out_hidden, out_dim)
         self.norm1 = nn.LayerNorm(d, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(c, eps=LN_EPS)
-        self.norm3 = nn.LayerNorm(c, eps=LN_EPS)
+        self.norm3 = nn.LayerNorm(out_dim, eps=LN_EPS)
 
     def reset_parameters(self, g: torch.Generator):
         for lin in (self.gen1_a, self.gen1_b, self.gen2_a, self.gen2_b,
@@ -137,7 +148,8 @@ class DynamicConv(nn.Module):
 
     def forward(self, pro_feat: torch.Tensor, roi_feat: torch.Tensor,
                 combined=None) -> torch.Tensor:
-        """pro_feat [B, A, pro_dim], roi_feat [B, A, P, C] -> [B, A, C].
+        """pro_feat [B, A, pro_dim], roi_feat [B, A, P, C] -> [B, A,
+        out_dim].
         ``combined``: :meth:`combine_weights`, computed once per weight
         set by the caller (None computes it here)."""
         c, d, p = self.c, self.d, self.feat_size

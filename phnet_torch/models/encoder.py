@@ -26,8 +26,9 @@ class Encoder(nn.Module):
         self.neck.reset_parameters(g)
 
     def forward(self, frames: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """frames [N, H, W, 3] -> FPN levels (strides 8/16/32), each
-        [N, h, w, C] (a channels-last view of the NCHW result)."""
+        """frames [N, H, W, 3] -> FPN levels, each [N, h, w, C] (a
+        channels-last view of the NCHW result): strides 8/16/32 from the
+        backbone stages ``out_indices`` (1, 2, 3), 4/8/16 from (0, 1, 2)."""
         x = frames.permute(0, 3, 1, 2)
         if torch.is_grad_enabled():
             # NCHW-contiguous for the backward: torch 2.13's CPU convolution

@@ -1,22 +1,29 @@
 """Dual-branch anchor lane head with 3-stage refinement.
 
-Port of ``phnet_tpu/models/head.py::LaneHead`` (single-scale variant,
-both branch MLP stacks per stage, no stage-0 hoisting). Per refine stage,
-coarse FPN level first:
+Port of ``phnet_tpu/models/head.py::LaneHead`` (the single-scale head of
+VIL-100 and of OpenLane-V's ``Router4OL``: both branch MLP stacks per
+stage, no stage-0 hoisting). Per refine stage, coarse FPN level first:
 
 1. pool anchor features along each prior's P sample points (bilinear,
    zero padding, as a one-hot contraction over the level's width);
 2. the router scores each anchor;
 3. DynamicConv turns the pooled features into an anchor embedding;
-4. the first branch decodes the embedding; the second branch decodes it
-   after the temporal decoder attended to the memory bank;
+4. the first branch decodes the embedding; the second branch decodes it,
+   with the anchor positions concatenated, after the temporal decoder
+   attended to the memory bank;
 5. the router-blended geometry seeds the next stage's priors.
+
+OpenLane's single head differs in two places: a learned positional
+embedding in place of the sine table, and the offsets from a head of
+their own (``separate_offset_head``) in place of the geometry head's tail.
+:class:`AnchorHead` holds what this head shares with the multi-scale one
+(``head_ms.py``): the anchors' geometry and the refine loop.
 
 The gradient stops where the JAX package stops it: at the router's input
 (the router learns only from the loss blend), at the embedding handed to
 the next stage, and at the blend weight and the next stage's priors.
 Inference is not changed by them. In train mode the temporal decoder
-applies dropout with masks drawn from the generator :meth:`LaneHead.forward`
+applies dropout with masks drawn from the generator :meth:`AnchorHead.forward`
 is given.
 """
 
@@ -33,7 +40,7 @@ from ..config import ModelConfig
 from ..device import full_f32
 from ..geometry import build_prior_embeddings
 from .dynamic_conv import DynamicConv
-from .positional import sinusoid_table
+from .positional import AnchorPositionalEncoding
 from .router import AdaptiveRouter
 from .transformer import TemporalDecoder
 
@@ -44,7 +51,7 @@ class HeadOutputs(NamedTuple):
     pred_fir: torch.Tensor   # [S, B, A, dim]
     pred_sec: torch.Tensor   # [S, B, A, dim]
     diff: torch.Tensor       # [S, B, A]
-    attn_feat: torch.Tensor  # [S, B, A, 2C]
+    attn_feat: torch.Tensor  # [S, B, A, attn_dim]
 
 
 def sample_x_indices(n_offsets: int, sample_points: int) -> np.ndarray:
@@ -101,30 +108,130 @@ class MergedBranchHeads(nn.Module):
             for i in range(len(self.out_dims)))
 
 
-class LaneHead(nn.Module):
+class AnchorHead(nn.Module):
+    """The anchors' geometry and the refine loop of both head variants.
+    A subclass builds ``prior_embeddings``' companions (``pro_embedding``,
+    the per-stage modules, ``temporal_decoder``) and defines
+    :meth:`_stage_local` and :meth:`_branches`."""
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         h, spec = cfg.head, cfg.lane
         self.cfg, self.spec = cfg, spec
         self.num_priors = h.num_priors
-        idx = sample_x_indices(spec.n_offsets, h.sample_points)
-        self.register_buffer("sample_x_index", torch.from_numpy(idx),
-                             persistent=False)
-        # normalized pixel-y (0 = top) of the P sample points, top -> bottom
-        self.register_buffer(
-            "prior_feat_ys", torch.from_numpy(np.flip(
-                1.0 - idx.astype(np.float32) / spec.n_strips).copy()),
-            persistent=False)
         self.register_buffer(
             "prior_ys", torch.from_numpy(np.linspace(
                 1.0, 0.0, spec.n_offsets, dtype=np.float32)),
             persistent=False)
-        self.register_buffer(
-            "pos", torch.from_numpy(sinusoid_table(
-                h.num_priors, h.fc_hidden_dim, h.pos_temperature,
-                h.pos_normalize)), persistent=False)
-
         self.prior_embeddings = nn.Parameter(torch.empty(h.num_priors, 3))
+
+    def reset_parameters(self, g: torch.Generator):
+        self.prior_embeddings.data.copy_(
+            torch.from_numpy(build_prior_embeddings(self.num_priors)))
+
+    # -- geometry ----------------------------------------------------------
+    def _line_xs(self, start_y, start_x, theta):
+        """Normalized xs of the straight line through (start_x, start_y) at
+        angle theta, over the offset rows (``RouterV4.py:160-170``)."""
+        w1 = self.cfg.img_w - 1
+        return (start_x * w1 + (1.0 - self.prior_ys - start_y)
+                * self.cfg.img_h / torch.tan(theta * math.pi + 1e-5)) / w1
+
+    def initial_priors(self) -> torch.Tensor:
+        emb = self.prior_embeddings
+        xs = self._line_xs(emb[:, 0:1], emb[:, 1:2], emb[:, 2:3])
+        a = self.num_priors
+        zeros = emb.new_zeros
+        return torch.cat([zeros(a, 2), emb, zeros(a, self.spec.n_lengths),
+                          xs], dim=-1)
+
+    @staticmethod
+    def _sample_ys(n_offsets: int, sample_points: int) -> torch.Tensor:
+        """Normalized pixel-y (0 = top) of the P sample points, top ->
+        bottom."""
+        idx = sample_x_indices(n_offsets, sample_points)
+        return torch.from_numpy(np.flip(
+            1.0 - idx.astype(np.float32) / (n_offsets - 1)).copy())
+
+    def _assemble(self, priors, cls_logits, reg_geo, offsets):
+        """Head outputs -> (full predictions with offsets, lines without).
+        reg_geo [B, A, 3 + n_lengths], offsets [B, A, O]."""
+        geo = priors[..., 2:5] + torch.tanh(reg_geo[..., :3])
+        lengths = reg_geo[..., 3:]
+        xs_line = self._line_xs(geo[..., 0:1], geo[..., 1:2], geo[..., 2:3])
+        full = torch.cat([cls_logits, geo, lengths, xs_line + offsets],
+                         dim=-1)
+        lines = torch.cat([cls_logits, geo, lengths, xs_line], dim=-1)
+        return full, lines
+
+    def _assemble_reg(self, priors, cls_logits, reg):
+        """:meth:`_assemble` of a geometry head whose output ends in the
+        offsets."""
+        n_geo = 3 + self.spec.n_lengths
+        return self._assemble(priors, cls_logits, reg[..., :n_geo],
+                              reg[..., n_geo:])
+
+    @full_f32()
+    def combine_dynamic(self):
+        """The collapsed (and, with ``cfg.quantize``, pre-quantized)
+        DynamicConv weights of every stage: compute once per weight set,
+        outside the frame loop; float32 whatever the TF32 flags say."""
+        return tuple(dyn.combine_weights() for dyn in self.dyn_heads)
+
+    def forward(self, fpn_feats: Tuple[torch.Tensor, ...],
+                memory_values: torch.Tensor, memory_mask: torch.Tensor,
+                dyn_combined=None,
+                dropout_gen: Optional[torch.Generator] = None
+                ) -> HeadOutputs:
+        """One frame. fpn_feats: [B, H, W, C] levels fine -> coarse (stage
+        s reads level ``-1 - s``); memory_values [B, S, M, attn_dim];
+        memory_mask [B, M] bool; dyn_combined: :meth:`combine_dynamic`;
+        dropout_gen: the decoder's dropout masks (train mode only)."""
+        h = self.cfg.head
+        levels = tuple(reversed(fpn_feats))
+        b = levels[0].shape[0]
+        if dyn_combined is None:
+            dyn_combined = self.combine_dynamic()
+        priors = self.initial_priors()[None].expand(b, -1, -1)
+        pro_feat = self.pro_embedding[None].expand(b, -1, -1)
+        pos = self.pos_encoding()
+        preds_fir, preds_sec, diffs, attn_feats = [], [], [], []
+        for s in range(h.refine_layers):
+            diff, decode_feat, attn_feat = self._stage_local(
+                s, levels[s], priors, pro_feat, pos, dyn_combined[s])
+            diffs.append(diff)
+            attn_feats.append(attn_feat)
+            pro_feat = decode_feat.detach()
+            decoded = self.temporal_decoder(attn_feat, memory_values[:, s],
+                                            memory_mask, dropout_gen)
+            (fir_full, fir_lines), (sec_full, sec_lines) = self._branches(
+                decode_feat, decoded, priors)
+            preds_fir.append(fir_full)
+            preds_sec.append(sec_full)
+            if s != h.refine_layers - 1:
+                w = diff.detach()[..., None]
+                priors = ((1.0 - w) * fir_lines + w * sec_lines).detach()
+        return HeadOutputs(pred_fir=torch.stack(preds_fir),
+                           pred_sec=torch.stack(preds_sec),
+                           diff=torch.stack(diffs),
+                           attn_feat=torch.stack(attn_feats))
+
+
+class LaneHead(AnchorHead):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        h, spec = cfg.head, cfg.lane
+        self.register_buffer(
+            "sample_x_index",
+            torch.from_numpy(sample_x_indices(spec.n_offsets,
+                                              h.sample_points)),
+            persistent=False)
+        self.register_buffer(
+            "prior_feat_ys", self._sample_ys(spec.n_offsets, h.sample_points),
+            persistent=False)
+        self.pos_encoding = AnchorPositionalEncoding(
+            h.num_priors, h.fc_hidden_dim, h.pos_encoding, h.pos_temperature,
+            h.pos_normalize)
         self.pro_embedding = nn.Parameter(
             torch.empty(h.num_priors, h.prior_feat_channels))
         self.dyn_heads = nn.ModuleList(
@@ -142,7 +249,10 @@ class LaneHead(nn.Module):
                            h.router_blocks)
             for _ in range(h.refine_layers))
         d = h.fc_hidden_dim
-        out_dims = (2, 3 + spec.n_lengths + spec.n_offsets)
+        n_geo = 3 + spec.n_lengths
+        # (cls, geometry[, offsets]) output widths
+        out_dims = ((2, n_geo, spec.n_offsets) if h.separate_offset_head
+                    else (2, n_geo + spec.n_offsets))
         self.heads_fir = MergedBranchHeads(d, out_dims, h.num_fc)
         self.heads_sec = MergedBranchHeads(2 * d, out_dims, h.num_fc)
         self.temporal_decoder = TemporalDecoder(
@@ -150,36 +260,12 @@ class LaneHead(nn.Module):
             h.decoder_dropout)
 
     def reset_parameters(self, g: torch.Generator):
-        self.prior_embeddings.data.copy_(
-            torch.from_numpy(build_prior_embeddings(self.num_priors)))
+        super().reset_parameters(g)
         self.pro_embedding.data.copy_(
             torch.randn(self.pro_embedding.shape, generator=g))
         for m in (*self.dyn_heads, *self.routers, self.heads_fir,
-                  self.heads_sec, self.temporal_decoder):
+                  self.heads_sec, self.temporal_decoder, self.pos_encoding):
             m.reset_parameters(g)
-
-    @full_f32()
-    def combine_dynamic(self):
-        """The collapsed (and, with ``cfg.quantize``, pre-quantized)
-        DynamicConv weights of every stage: compute once per weight set,
-        outside the frame loop; float32 whatever the TF32 flags say."""
-        return tuple(dyn.combine_weights() for dyn in self.dyn_heads)
-
-    # -- geometry ----------------------------------------------------------
-    def _line_xs(self, start_y, start_x, theta):
-        """Normalized xs of the straight line through (start_x, start_y) at
-        angle theta, over the offset rows (``RouterV4.py:160-170``)."""
-        w1 = self.cfg.img_w - 1
-        return (start_x * w1 + (1.0 - self.prior_ys - start_y)
-                * self.cfg.img_h / torch.tan(theta * math.pi + 1e-5)) / w1
-
-    def initial_priors(self) -> torch.Tensor:
-        emb = self.prior_embeddings
-        xs = self._line_xs(emb[:, 0:1], emb[:, 1:2], emb[:, 2:3])
-        a = self.num_priors
-        zeros = emb.new_zeros
-        return torch.cat([zeros(a, 2), emb, zeros(a, self.spec.n_lengths),
-                          xs], dim=-1)
 
     def _pool(self, feat: torch.Tensor, priors: torch.Tensor) -> torch.Tensor:
         """feat [B, H, W, C] (one FPN level), priors [B, A, dim] ->
@@ -205,66 +291,24 @@ class LaneHead(nn.Module):
         # [B, P, A, W] @ [B, P, W, C] -> [B, P, A, C]
         return (weight.transpose(1, 2) @ rows).transpose(1, 2)
 
-    def _assemble(self, priors, cls_logits, reg):
-        """Head outputs -> (full predictions with offsets, lines without)."""
-        n_geo = 3 + self.spec.n_lengths
-        geo = priors[..., 2:5] + torch.tanh(reg[..., :3])
-        lengths = reg[..., 3:n_geo]
-        xs_line = self._line_xs(geo[..., 0:1], geo[..., 1:2], geo[..., 2:3])
-        full = torch.cat([cls_logits, geo, lengths, xs_line + reg[..., n_geo:]],
-                         dim=-1)
-        lines = torch.cat([cls_logits, geo, lengths, xs_line], dim=-1)
-        return full, lines
+    def _branch(self, heads, feat, priors):
+        if self.cfg.head.separate_offset_head:
+            return self._assemble(priors, *heads(feat))
+        return self._assemble_reg(priors, *heads(feat))
 
-    def _dual_branch(self, feat_fir, feat_sec, priors):
+    def _branches(self, feat_fir, feat_sec, priors):
         """Both branches' heads. The JAX package stacks the two MLP stacks
         into one zero-padded batched product; the padded channels are exact
         zeros, so running them one after the other is the same function."""
-        return (self._assemble(priors, *self.heads_fir(feat_fir)),
-                self._assemble(priors, *self.heads_sec(feat_sec)))
+        return (self._branch(self.heads_fir, feat_fir, priors),
+                self._branch(self.heads_sec, feat_sec, priors))
 
-    def _stage_local(self, s, level, priors, pro_feat, combined):
-        """Pool, router score, DynamicConv, attention features of stage s."""
+    def _stage_local(self, s, level, priors, pro_feat, pos, combined):
+        """Pool, router score, DynamicConv, attention features of stage s:
+        the embedding with the positions concatenated."""
         pooled = self._pool(level, priors)  # [B, A, P, C]
         diff = self.routers[s](pooled.transpose(-1, -2).detach())[..., 0]
         decode_feat = self.dyn_heads[s](pro_feat, pooled, combined)
         attn_feat = torch.cat(
-            [decode_feat, self.pos[None].expand_as(decode_feat)], dim=-1)
+            [decode_feat, pos[None].expand_as(decode_feat)], dim=-1)
         return diff, decode_feat, attn_feat
-
-    def forward(self, fpn_feats: Tuple[torch.Tensor, ...],
-                memory_values: torch.Tensor, memory_mask: torch.Tensor,
-                dyn_combined=None,
-                dropout_gen: Optional[torch.Generator] = None
-                ) -> HeadOutputs:
-        """One frame. fpn_feats: [B, H, W, C] levels fine -> coarse (stage
-        s reads level ``-1 - s``); memory_values [B, S, M, 2C];
-        memory_mask [B, M] bool; dyn_combined: :meth:`combine_dynamic`;
-        dropout_gen: the decoder's dropout masks (train mode only)."""
-        h = self.cfg.head
-        levels = tuple(reversed(fpn_feats))
-        b = levels[0].shape[0]
-        if dyn_combined is None:
-            dyn_combined = self.combine_dynamic()
-        priors = self.initial_priors()[None].expand(b, -1, -1)
-        pro_feat = self.pro_embedding[None].expand(b, -1, -1)
-        preds_fir, preds_sec, diffs, attn_feats = [], [], [], []
-        for s in range(h.refine_layers):
-            diff, decode_feat, attn_feat = self._stage_local(
-                s, levels[s], priors, pro_feat, dyn_combined[s])
-            diffs.append(diff)
-            attn_feats.append(attn_feat)
-            pro_feat = decode_feat.detach()
-            decoded = self.temporal_decoder(attn_feat, memory_values[:, s],
-                                            memory_mask, dropout_gen)
-            (fir_full, fir_lines), (sec_full, sec_lines) = self._dual_branch(
-                decode_feat, decoded, priors)
-            preds_fir.append(fir_full)
-            preds_sec.append(sec_full)
-            if s != h.refine_layers - 1:
-                w = diff.detach()[..., None]
-                priors = ((1.0 - w) * fir_lines + w * sec_lines).detach()
-        return HeadOutputs(pred_fir=torch.stack(preds_fir),
-                           pred_sec=torch.stack(preds_sec),
-                           diff=torch.stack(diffs),
-                           attn_feat=torch.stack(attn_feats))

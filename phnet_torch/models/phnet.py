@@ -3,14 +3,19 @@ training.
 
 The encoder runs over all clip frames as one batch; the head then runs
 frame by frame in a Python loop, carrying a fixed-shape ring memory of
-positive-lane features ``[B, S, W, L+1, 2C]`` with a slot mask.
+positive-lane features ``[B, S, W, L+1, attn_dim]`` with a slot mask.
 
 Inference (:meth:`PHNet.forward`, :meth:`PHNet.detect`): each frame's
 routed predictions go through the confidence filter and lane NMS (the CUDA
 kernel on the card), and the kept rows plus one mean-negative row are
 written into the ring.
 
-Training (:meth:`PHNet.train_forward`, the model in train mode): BatchNorm
+Both OpenLane-V heads run inference: the single-scale ``LaneHead`` with
+OL's options and the multi-scale ``MultiScaleLaneHead``, chosen by
+``cfg.head.variant``.
+
+Training (:meth:`PHNet.train_forward`, the model in train mode; VIL-100's
+lane layout only, OpenLane-V training is not ported yet): BatchNorm
 on batch statistics, decoder dropout, and per frame one batched Hungarian
 solve on the detached predictions of both branches and every stage; each
 stage writes the features of its own second-branch matches into the ring,
@@ -33,6 +38,7 @@ from ..losses.assign import train_assign
 from ..ops.nms import nms_keeps
 from .encoder import Encoder
 from .head import HeadOutputs, LaneHead
+from .head_ms import MultiScaleLaneHead
 
 
 class MemoryState(NamedTuple):
@@ -136,7 +142,8 @@ class PHNet(nn.Module):
         self.cfg = cfg
         with torch.device(dev):
             self.encoder = Encoder(cfg)
-            self.head = LaneHead(cfg)
+            self.head = (MultiScaleLaneHead(cfg) if cfg.head.variant == "multi"
+                         else LaneHead(cfg))
         self.to(dev)
         self.eval()
 
@@ -234,6 +241,10 @@ class PHNet(nn.Module):
             raise ValueError(
                 f"quantize={cfg.quantize!r} is inference-only (round() has "
                 f"no useful gradient); train with quantize='none'")
+        if cfg.lane.n_lengths != 2:
+            raise ValueError("OpenLane-V training (the OL lane layout, both "
+                             "of its heads) is not ported yet; the port "
+                             "trains VIL-100")
         feats = self.encode(frames)
         t, b = feats[0].shape[:2]
         s, window = cfg.head.refine_layers, (

@@ -1,12 +1,15 @@
-"""Anchor-index sine positional table (port of
-``phnet_tpu/models/positional.py``, reference
-``SeqFormer/position_encoding.py:59-89``)."""
+"""Anchor-index positional encodings of the second branch (port of
+``phnet_tpu/models/positional.py``): the sine table (reference
+``SeqFormer/position_encoding.py:59-89``; VIL) and the learned embedding
+(``position_encoding.py:116-131``; OL, ``Router4OL.py:110``)."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
+import torch.nn as nn
 
 
 def sinusoid_table(n_position: int, d_hid: int, temperature: float,
@@ -22,3 +25,27 @@ def sinusoid_table(n_position: int, d_hid: int, temperature: float,
     pos[:, 0::2] = np.sin(pos[:, 0::2])
     pos[:, 1::2] = np.cos(pos[:, 1::2])
     return pos
+
+
+class AnchorPositionalEncoding(nn.Module):
+    """Per-anchor positions [A, d]: ``kind="sine"`` a fixed table (a
+    buffer, not saved), ``"learned"`` the parameter ``embedding``
+    (uniform in [0, 1) at init, as flax's ``uniform(1.0)``)."""
+
+    def __init__(self, num_anchors: int, dim: int, kind: str = "sine",
+                 temperature: float = 16.0, normalize: bool = True):
+        super().__init__()
+        self.kind = kind
+        if kind == "learned":
+            self.embedding = nn.Parameter(torch.empty(num_anchors, dim))
+        else:
+            self.register_buffer("table", torch.from_numpy(sinusoid_table(
+                num_anchors, dim, temperature, normalize)), persistent=False)
+
+    def reset_parameters(self, g: torch.Generator):
+        if self.kind == "learned":
+            self.embedding.data.copy_(torch.rand(self.embedding.shape,
+                                                 generator=g))
+
+    def forward(self) -> torch.Tensor:
+        return self.embedding if self.kind == "learned" else self.table

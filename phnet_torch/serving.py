@@ -3,10 +3,13 @@ device, no mesh).
 
 Up to ``max_streams`` live videos share one batched frame step per tick;
 each stream has its own rows of the temporal memory ring, so attaching or
-detaching a stream is a masked write. A persistent device frame buffer
-receives only the frames that arrived this tick; a stream that skips a
-tick keeps its pre-step memory rows, and the ring slot written this tick
-becomes a hole (masked) for it.
+detaching a stream is a masked write. The ring holds the config's window
+(OpenLane-V: 5 frames, so it wraps during a stream) or, where that is
+unbounded (VIL-100), ``DEFAULT_WINDOW`` frames; every preset of
+``phnet_torch.config`` serves, both OpenLane-V heads included. A
+persistent device frame buffer receives only the frames that arrived this
+tick; a stream that skips a tick keeps its pre-step memory rows, and the
+ring slot written this tick becomes a hole (masked) for it.
 """
 
 from __future__ import annotations

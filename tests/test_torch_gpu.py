@@ -60,35 +60,32 @@ NMS_SHAPES = [  # (streams, A, n_offsets, first kind of chip_smoke.NMS_KINDS)
 ]
 
 
-def nms_problem(cuda, streams, a, n_offsets, first, conf):
+def nms_problem(cuda, streams, a, n_offsets, first, conf, n_lengths=2):
     """``streams`` streams of chip_smoke.NMS_KINDS in turn from ``first``:
-    routed [B, A, 7 + O], scores [B, A] as a strided view (the model's
-    softmax column is one), valid [B, A]."""
+    routed [B, A, 5 + n_lengths + O] (VIL's lane layout or OL's), scores
+    [B, A] as a strided view (the model's softmax column is one), valid
+    [B, A]."""
     import chip_smoke
 
     kinds = chip_smoke.NMS_KINDS
     routed, scores, valid = chip_smoke.nms_batch(
         torch, [(kinds[(first + i) % len(kinds)], 10 * streams + i)
-                for i in range(streams)], a, n_offsets, conf, cuda)
+                for i in range(streams)], a, n_offsets, conf, cuda,
+        n_lengths)
     scores = torch.stack([torch.zeros_like(scores), scores], -1)[..., 1]
     return routed, scores, valid
 
 
-@pytest.mark.parametrize("conf", [0.6, 0.0])
-@pytest.mark.parametrize("streams,a,n_offsets,first", NMS_SHAPES)
-def test_nms_keeps_kernel_bit_equal_to_plain(cuda, streams, a, n_offsets,
-                                             first, conf):
-    """The kernel through both entries against the plain versions on the
-    card, every output bit-equal, on seeded and adversarial streams (tied
-    scores, all valid, none valid, fewer valid than top_k, duplicate
-    lanes, -0.0 and NaN scores); one launch a call, and a second call
-    gives the same bits."""
+def check_nms_keeps(cuda, streams, a, n_offsets, first, conf, n_lengths=2,
+                    top_k=8):
+    """Both entries of the kernel against their plain versions, every
+    output bit-equal; one launch a call; a second call the same bits."""
     from phnet_torch.config import LaneSpec
 
-    spec = LaneSpec(n_offsets=n_offsets)
+    spec = LaneSpec(n_offsets=n_offsets, n_lengths=n_lengths)
     routed, scores, valid = nms_problem(cuda, streams, a, n_offsets, first,
-                                        conf)
-    args = (routed, scores, spec, 768, conf, 50.0, 8)
+                                        conf, n_lengths)
+    args = (routed, scores, spec, 768, conf, 50.0, top_k)
     launches = tnms.lane_nms.launches
     got = tnms.nms_keeps(*args)
     torch.cuda.synchronize()
@@ -100,7 +97,7 @@ def test_nms_keeps_kernel_bit_equal_to_plain(cuda, streams, a, n_offsets,
     assert all(torch.equal(g, r) for g, r in zip(again, got))
 
     props = tnms.nms_proposals_from_predictions(routed, spec, 768)
-    nms_args = (props, scores, valid, 50.0, n_offsets, 8)
+    nms_args = (props, scores, valid, 50.0, n_offsets, top_k)
     got = tnms.lane_nms(*nms_args)
     torch.cuda.synchronize()
     assert tnms.lane_nms.launches == launches + 3
@@ -108,17 +105,51 @@ def test_nms_keeps_kernel_bit_equal_to_plain(cuda, streams, a, n_offsets,
         assert torch.equal(g, r)
 
 
+@pytest.mark.parametrize("conf", [0.6, 0.0])
+@pytest.mark.parametrize("streams,a,n_offsets,first", NMS_SHAPES)
+def test_nms_keeps_kernel_bit_equal_to_plain(cuda, streams, a, n_offsets,
+                                             first, conf):
+    """The kernel through both entries against the plain versions on the
+    card, every output bit-equal, on seeded and adversarial streams (tied
+    scores, all valid, none valid, fewer valid than top_k, duplicate
+    lanes, -0.0 and NaN scores); one launch a call, and a second call
+    gives the same bits."""
+    check_nms_keeps(cuda, streams, a, n_offsets, first, conf)
+
+
+@pytest.mark.parametrize("conf", [0.5, 0.0])
+@pytest.mark.parametrize("streams,first", [(1, 0), (4, 0), (4, 4), (8, 2),
+                                           (10, 6)])
+def test_nms_keeps_kernel_bit_equal_to_plain_at_openlane_shape(
+        cuda, streams, first, conf):
+    """As above at ``openlane_config``'s shape: 240 rows of OL's lane
+    layout (one length field, 72 offsets), top_k 4, confidence 0.5."""
+    check_nms_keeps(cuda, streams, 240, 72, first, conf, n_lengths=1,
+                    top_k=4)
+
+
 def test_nms_keeps_kernel_in_cuda_graph(cuda):
     """The call captured in a CUDA graph: replayed on the captured inputs,
     and on new inputs copied into them, it equals the eager call."""
+    check_nms_keeps_in_graph(cuda, 36, 2, 8, 0.6)
+
+
+def test_nms_keeps_kernel_in_cuda_graph_at_openlane_shape(cuda):
+    """As above at ``openlane_config``'s shape (the O = 72 instance)."""
+    check_nms_keeps_in_graph(cuda, 72, 1, 4, 0.5)
+
+
+def check_nms_keeps_in_graph(cuda, n_offsets, n_lengths, top_k, conf):
     from phnet_torch.config import LaneSpec
 
-    spec = LaneSpec(n_offsets=36)
-    routed, scores, _ = nms_problem(cuda, 4, 240, 36, 0, 0.6)
-    routed2, scores2, _ = nms_problem(cuda, 4, 240, 36, 4, 0.6)
+    spec = LaneSpec(n_offsets=n_offsets, n_lengths=n_lengths)
+    routed, scores, _ = nms_problem(cuda, 4, 240, n_offsets, 0, conf,
+                                    n_lengths)
+    routed2, scores2, _ = nms_problem(cuda, 4, 240, n_offsets, 4, conf,
+                                      n_lengths)
 
     def call(r, s):
-        return tnms.nms_keeps(r, s, spec, 768, 0.6, 50.0, 8)
+        return tnms.nms_keeps(r, s, spec, 768, conf, 50.0, top_k)
 
     want, want2 = call(routed, scores), call(routed2, scores2)
     side = torch.cuda.Stream()
@@ -167,15 +198,13 @@ def test_router_chain_kernel_close_to_plain(cuda, streams, a, c, p):
     assert trc.router_chain.launches == launches + 2
 
 
-def test_f32_server_under_default_flags_matches_cpu():
-    """A full-width f32 server built with torch's TF32 flags at their
-    defaults (cuDNN's on) serves what the CPU serves: the model turns
-    TF32 off itself. As ``chip_smoke.py::phase_end_to_end``: every
-    tick's kept rows within 1e-3, equal keep masks and memory masks."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+def serve_card_and_cpu(preset, ticks=3):
+    """A full-width f32 server of the preset, built with torch's TF32 flags
+    at their defaults (cuDNN's on), on the card and on the CPU: 2 streams,
+    ``ticks`` ticks of seeded frames. Returns {device: (kept [T, 2, K,
+    dim], valid [T, 2, K], memory mask)}."""
     import chip_smoke
-    from phnet_torch.config import vil100_config
+    from phnet_torch import config
     from phnet_torch.serving import StreamingServer
 
     saved = (torch.get_float32_matmul_precision(),
@@ -183,18 +212,21 @@ def test_f32_server_under_default_flags_matches_cpu():
     torch.set_float32_matmul_precision("highest")  # torch's defaults
     torch.backends.cudnn.allow_tf32 = True
     try:
-        cfg = vil100_config()
+        cfg = getattr(config, preset)()
         weights = chip_smoke.seeded_state_dict(torch, cfg)
         rng = np.random.default_rng(4)
-        ticks = [{s: rng.normal(size=(cfg.model.img_h, cfg.model.img_w, 3))
-                  .astype(np.float32) for s in range(2)} for _ in range(3)]
+        frames = [{s: rng.normal(size=(cfg.model.img_h, cfg.model.img_w, 3))
+                   .astype(np.float32) for s in range(2)}
+                  for _ in range(ticks)]
+        geometry = (dict(ori_img_h=1080, cut_height=378)
+                    if preset == "vil100_config" else {})
         served = {}
         for dev in ("cuda", "cpu"):
             server = StreamingServer(cfg, weights, max_streams=2, device=dev)
             for _ in range(2):
-                server.attach(ori_img_h=1080, cut_height=378)
-            out = [tuple(t.cpu() for t in server.step_async(frames)[:2])
-                   for frames in ticks]
+                server.attach(**geometry)
+            out = [tuple(t.cpu() for t in server.step_async(f)[:2])
+                   for f in frames]
             served[dev] = (torch.stack([k for k, _ in out]),
                            torch.stack([v for _, v in out]),
                            server.memory.mask.cpu())
@@ -202,6 +234,32 @@ def test_f32_server_under_default_flags_matches_cpu():
     finally:
         torch.set_float32_matmul_precision(saved[0])
         torch.backends.cudnn.allow_tf32 = saved[1]
+    return served
+
+
+def test_f32_server_under_default_flags_matches_cpu():
+    """A full-width f32 server built with torch's TF32 flags at their
+    defaults (cuDNN's on) serves what the CPU serves: the model turns
+    TF32 off itself. As ``chip_smoke.py::phase_end_to_end``: every
+    tick's kept rows within 1e-3, equal keep masks and memory masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    served = serve_card_and_cpu("vil100_config")
+    (kg, vg, mg), (kc, vc, mc) = served["cuda"], served["cpu"]
+    assert torch.equal(vg, vc) and torch.equal(mg, mc)
+    assert vc.any(), "NMS kept nothing: the check has no rows"
+    assert (kg - kc)[vc].abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("preset", ["openlane_config",
+                                    "openlane_multiscale_config"])
+def test_openlane_server_on_card_matches_cpu(preset):
+    """Both OpenLane-V presets at full width, f32, under torch's default
+    TF32 flags: 6 ticks (past the 5-frame ring's wrap), kept rows within
+    1e-3 of the CPU's, keep masks and memory masks equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    served = serve_card_and_cpu(preset, ticks=6)
     (kg, vg, mg), (kc, vc, mc) = served["cuda"], served["cpu"]
     assert torch.equal(vg, vc) and torch.equal(mg, mc)
     assert vc.any(), "NMS kept nothing: the check has no rows"
@@ -220,7 +278,9 @@ def test_f32_server_under_default_flags_matches_cpu():
     (7, 300, 60),       # every axis ragged (K and N padded)
     (241, 4608, 1024),  # ragged M, split K
     (960, 72, 8192),    # K beyond one stage, not a multiple of it
-])
+] + [(m, k, n) for m in (960, 240) for k, n in (  # the multi-scale head's
+    (256, 8192), (3072, 2048), (2048, 8192), (1536, 256), (256, 2048),
+    (3072, 512), (512, 2048), (256, 128), (128, 512), (3072, 128))])
 def test_w8_matmul_kernel_close_to_plain(cuda, m, k, n):
     """Within 1e-5 of max |plain|: the same bf16 operands, f32 sums in
     another order (TF32 off for the plain version's f32 matmul). A second

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``phnet_torch``, nothing in
-``chip_smoke.py`` and nothing in ``tools/torch_serving_profile.py`` or
-``tools/torch_train_profile.py`` imports JAX, flax, optax or the JAX
+``chip_smoke.py`` and nothing in the port's tools
+(``tools/torch_serving_profile.py``, ``tools/torch_train_profile.py``,
+``tools/torch_nms_instances.py``) imports JAX, flax, optax or the JAX
 package, and its entry points run on the card by default (so they raise
-where there is none)."""
+where there is none), the OpenLane-V presets' included."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from phnet_torch.config import vil100_config
+from phnet_torch.config import (openlane_config, openlane_multiscale_config,
+                                vil100_config)
 from phnet_torch.models import PHNet
 from phnet_torch.pipeline import InferencePipeline
 from phnet_torch.serving import StreamingServer
@@ -25,6 +27,7 @@ def port_sources():
     return (sorted((REPO / "phnet_torch").rglob("*.py"))
             + [REPO / "tools" / "torch_serving_profile.py",
                REPO / "tools" / "torch_train_profile.py",
+               REPO / "tools" / "torch_nms_instances.py",
                REPO / "chip_smoke.py"])
 
 
@@ -49,7 +52,9 @@ def test_port_sources_exist():
             "phnet_torch/train/step.py", "phnet_torch/train/checkpoint.py",
             "phnet_torch/train/trainer.py", "phnet_torch/train/__main__.py",
             "phnet_torch/data/synthetic.py", "phnet_torch/data/loader.py",
-            "tools/torch_train_profile.py"} <= names
+            "tools/torch_train_profile.py", "phnet_torch/models/head_ms.py",
+            "phnet_torch/ops/sampler.py",
+            "tools/torch_nms_instances.py"} <= names
     assert (REPO / "phnet_torch" / "csrc" / "w8_matmul.cu").is_file()
 
 
@@ -74,3 +79,18 @@ def test_entry_points_default_to_the_card(tmp_path):
         create_train_state(cfg, 10)
     with pytest.raises(RuntimeError, match="CUDA"):
         train(cfg, None, [], str(tmp_path))
+
+
+@pytest.mark.parametrize("preset", [openlane_config,
+                                    openlane_multiscale_config],
+                         ids=lambda f: f.__name__)
+def test_openlane_entry_points_default_to_the_card(preset):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = preset()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        StreamingServer(cfg, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PHNet(cfg.model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferencePipeline(cfg, {})

@@ -11,7 +11,8 @@ are plain Python and are checked here:
   streams) gets at least one wave of CTAs on an H100's 132 SMs, or as much
   of one as fits without a second wave, for the reason stated at the
   check;
-- no product of the main path is padded;
+- no product of the main path is padded, VIL's nor the multi-scale
+  OpenLane-V head's (13 a frame, 10 distinct shapes);
 - the split sum in the kernel's order (f32 partials of the bf16 operands,
   summed in split order, then scaled) stays within 1e-6 of max |ref| of
   JAX's ``w8_matmul_prequant`` and of ``w8_matmul_pallas(interpret=True)``.
@@ -32,8 +33,14 @@ PRODUCTS = (("gen1", 64, 8192), ("gen2_a", 4608, 1024),
             ("gen2_b", 1024, 8192), ("out", 2304, 64))
 RAGGED = [(7, 300, 60), (241, 4608, 1024), (960, 72, 8192)]
 SHALLOW = [(240, 16, 64), (33, 40, 8192), (5, 10, 3)]  # K < one 64-deep stage
+# the distinct (K, N) of the multi-scale OpenLane-V head's 13 products a
+# frame (``chip_smoke.w8_products(openlane_multiscale_config())``)
+MS_PRODUCTS = ((256, 8192), (3072, 2048), (2048, 8192), (1536, 256),
+               (256, 2048), (3072, 512), (512, 2048), (256, 128), (128, 512),
+               (3072, 128))
 SHAPES = ([(240 * b, k, n) for b in (1, 2, 4, 8) for _, k, n in PRODUCTS]
-          + RAGGED + SHALLOW)
+          + RAGGED + SHALLOW
+          + [(240 * b, k, n) for b in (1, 4) for k, n in MS_PRODUCTS])
 
 
 @pytest.mark.parametrize("m,k,n", SHAPES)
@@ -84,6 +91,27 @@ def test_main_path_fills_the_card_unpadded(name, k, n, streams):
     assert plan.ctas + tiles > H100_SMS or plan.splits == deepest, plan
 
 
+def test_multiscale_products_are_the_presets():
+    """``MS_PRODUCTS`` are the products the preset's chains make."""
+    import chip_smoke
+
+    cfg = chip_smoke.preset_config("openlane_multiscale_config", "w8")
+    products = chip_smoke.w8_products(cfg)
+    assert len(products) == 13
+    assert {(k, n) for _, k, n in products} == set(MS_PRODUCTS)
+
+
+@pytest.mark.parametrize("streams", [1, 4])
+@pytest.mark.parametrize("k,n", MS_PRODUCTS)
+def test_multiscale_products_unpadded(k, n, streams):
+    """The multi-scale head's products take the kernel's tensor maps as
+    they are (K a multiple of 8, N of 16), in at most one wave of CTAs
+    unless unsplit."""
+    plan = tw8.w8_plan(240 * streams, k, n, H100_SMS)
+    assert plan.pad_k == 0 and plan.pad_n == 0
+    assert plan.ctas <= H100_SMS or plan.splits == 1
+
+
 def _draw(m, k, n, seed):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(m, k)).astype(np.float32)
@@ -94,7 +122,8 @@ def _draw(m, k, n, seed):
 
 @pytest.mark.parametrize("m,k,n", [(240, 4608, 1024), (240, 2304, 64),
                                    (960, 2304, 64), (7, 300, 60),
-                                   (241, 1024, 256)])
+                                   (241, 1024, 256), (960, 3072, 512),
+                                   (960, 3072, 128)])
 def test_split_sum_matches_jax(m, k, n):
     """The kernel's summation order in plain PyTorch against JAX's
     ``w8_matmul_prequant``, under the plan the card would take."""

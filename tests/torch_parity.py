@@ -1,10 +1,14 @@
 """Shared set-up of the port's parity tests (``test_torch_*.py``).
 
-One small configuration (the ``__graft_entry__`` dry-run geometry: 64x128
-frames, 32 priors, 12 offsets, 8 sample points, widths 16) is built in both
-packages from the same keyword arguments; weights are drawn with numpy for
-the JAX package's parameter tree and reach the port through
-``phnet_torch.convert``.
+Small configurations are built in both packages from the same keyword
+arguments: the VIL one (the ``__graft_entry__`` dry-run geometry: 64x128
+frames, 32 priors, 12 offsets, 8 sample points, widths 16) and two
+OpenLane-V ones at 96x192 with 32 priors and 24 offsets, the multi-scale
+head's (``tests/test_head_ms.py``'s values: points (6, 12, 24) over
+channels (16, 8, 4), window 3) and the single head's (the OL lane layout,
+learned positions, a separate offset head, soft routing, window 2).
+Weights are drawn with numpy for the JAX package's parameter tree and
+reach the port through ``phnet_torch.convert``.
 """
 
 from __future__ import annotations
@@ -49,6 +53,52 @@ def torch_cfg(window: int = 0):
     return small_model_cfg(tcfg, window)
 
 
+def small_ol_cfg(cfgmod, quantize: str = "none"):
+    """The small OpenLane-V single-head ModelConfig (``Router4OL``)."""
+    return cfgmod.ModelConfig(
+        img_h=96,
+        img_w=192,
+        lane=cfgmod.LaneSpec(n_offsets=24, n_lengths=1),
+        backbone=cfgmod.BackboneConfig(in_channels=(8, 16, 24, 32)),
+        neck=cfgmod.NeckConfig(in_channels=(16, 24, 32), out_channels=16,
+                               num_outs=3),
+        head=cfgmod.HeadConfig(num_priors=32, sample_points=8,
+                               fc_hidden_dim=16, prior_feat_channels=16,
+                               decoder_ffn_dim=32, pos_encoding="learned",
+                               separate_offset_head=True),
+        memory=cfgmod.MemoryConfig(window=2),
+        test=cfgmod.TestParams(conf_threshold=0.5, nms_thres=20.0,
+                               nms_topk=4),
+        max_lanes=4,
+        routing="soft",
+        quantize=quantize,
+    )
+
+
+def small_ms_cfg(cfgmod, quantize: str = "none"):
+    """The small multi-scale ModelConfig (``Router4OLV2``;
+    ``tests/test_head_ms.py::tiny_ms_cfg``)."""
+    return cfgmod.ModelConfig(
+        img_h=96,
+        img_w=192,
+        lane=cfgmod.LaneSpec(n_offsets=24, n_lengths=1),
+        backbone=cfgmod.BackboneConfig(in_channels=(8, 16, 24, 32),
+                                       out_indices=(0, 1, 2)),
+        neck=cfgmod.NeckConfig(in_channels=(8, 16, 24),
+                               out_channels=(4, 8, 16), num_outs=3),
+        head=cfgmod.HeadConfig(num_priors=32, fc_hidden_dim=32,
+                               decoder_ffn_dim=64, variant="multi",
+                               ms_sample_points=(6, 12, 24),
+                               ms_channels=(16, 8, 4)),
+        memory=cfgmod.MemoryConfig(window=3),
+        test=cfgmod.TestParams(conf_threshold=0.3, nms_thres=20.0,
+                               nms_topk=4),
+        max_lanes=4,
+        routing="hard",
+        quantize=quantize,
+    )
+
+
 def variable_shapes(cfg):
     """The JAX PHNet's ``variables`` tree as ``ShapeDtypeStruct``s (traced,
     not compiled)."""
@@ -85,11 +135,14 @@ def init_variables(cfg, seed: int = 0, cls_std: float = 1.0,
             x = 1.0 + rng.uniform(0.0, 0.5, shape)
         elif name.endswith("['mean']"):
             x = normal(0.05)
-        elif "heads_" in name and "out0_" in name:
+        elif ("heads_" in name and "out0_" in name) or (
+                "['cls_" in name and "['out']" in name):
             x = normal(cls_std)
-        elif "heads_" in name and "out" in name:
+        elif ("heads_" in name and "out" in name) or (
+                "['reg_" in name and "['out']" in name):
             x = normal(1e-3)
-            if name.endswith("out1_bias']"):
+            if name.endswith("out1_bias']") or (
+                    "['reg_" in name and name.endswith("['bias']")):
                 x[3] += lane_length
         elif "heads_" in name and "kernel" in name:
             x = normal(1.0 / np.sqrt(shape[1]))
@@ -105,6 +158,8 @@ def init_variables(cfg, seed: int = 0, cls_std: float = 1.0,
             x = build_prior_embeddings(shape[0]) + normal(0.01)
         elif name.endswith("['pro_embedding']"):
             x = normal(1.0)
+        elif name.endswith("['embedding']"):  # learned positions
+            x = rng.uniform(0.0, 1.0, shape)
         elif name.endswith("['scale']"):
             x = 1.0 + normal(0.05)
         else:  # biases
@@ -132,3 +187,174 @@ def to_np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+# -- OpenLane-V servers and pipelines, JAX against the port -----------------
+
+OL_SIZE = (800, 1920)  # OL's coordinate frame: 1280 x 1920 less 480 rows
+
+
+def server_schedule():
+    """Ticks of two streams (stream: frame seed), with stream 1 skipping
+    tick 2, detached and re-attached (fresh memory) before tick 4, and new
+    weights before tick 6: eleven ticks, past three wraps of a 2- or
+    3-frame ring."""
+    return [{0: 10, 1: 20}, {0: 11, 1: 21}, {0: 12}, {0: 13, 1: 23},
+            "reattach", {0: 14, 1: 30}, {0: 15, 1: 31}, "swap",
+            {0: 16, 1: 32}, {0: 17}, {0: 18, 1: 34}, {0: 19, 1: 35},
+            {0: 20, 1: 36}]
+
+
+def drive_servers(js, ts, swap_variables, frame_shape, atol=1e-4):
+    """Run :func:`server_schedule` through a JAX and a port server of two
+    streams: per tick the valid slots and the memory mask equal, kept rows
+    within ``atol``, decoded lanes equal in count and within ``atol``.
+    Returns the number of decoded lanes."""
+    from phnet_torch.convert import convert
+
+    for server in (js, ts):
+        assert (server.attach(), server.attach()) == (0, 1)
+    n_lanes = 0
+    for tick in server_schedule():
+        if tick == "reattach":
+            for server in (js, ts):
+                server.detach(1)
+                assert server.attach() == 1
+            continue
+        if tick == "swap":
+            js.update_variables(jax_tree(swap_variables))
+            ts.update_variables(convert(swap_variables))
+            continue
+        frames = {sid: seeded_frames(seed, frame_shape)
+                  for sid, seed in tick.items()}
+        jk, jvalid, jsids = js.step_async(frames)
+        tk, tvalid, tsids = ts.step_async(frames)
+        assert jsids == tsids
+        np.testing.assert_array_equal(to_np(tvalid), np.asarray(jvalid))
+        np.testing.assert_allclose(to_np(tk), np.asarray(jk), rtol=0,
+                                   atol=atol)
+        np.testing.assert_array_equal(to_np(ts.memory.mask),
+                                      np.asarray(js.memory.mask))
+        jl, tl = js.decode(jk, jvalid, jsids), ts.decode(tk, tvalid, tsids)
+        for sid in jl:
+            assert len(jl[sid]) == len(tl[sid])
+            for a, b in zip(jl[sid], tl[sid]):
+                np.testing.assert_allclose(b.points, a.points, rtol=0,
+                                           atol=atol)
+            n_lanes += len(tl[sid])
+    assert ts.memory.t == int(js.memory.t) == 11
+    return n_lanes
+
+
+def ol_clips(frame_shape, lengths=(5, 4)):
+    """In-memory OL clips (the pipeline's duck-typed dataset) in OL's
+    cropped coordinate frame."""
+    out = []
+    for i, t in enumerate(lengths):
+        pts = [np.array([[500.0 + 80 * j, 790.0 - 60 * k] for k in range(4)])
+               for j in range(2)]
+        out.append({"frames": seeded_frames(40 + i, (t,) + frame_shape),
+                    "size": OL_SIZE, "name": f"segment_{i}",
+                    "frame_names": [f"{n:06d}" for n in range(t)],
+                    "points": [pts] * t})
+    return out
+
+
+def lines_files(root):
+    import os
+
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def compare_pipelines(jpipe, tpipe, data, tmp_path):
+    """Both pipelines over ``data``, emitted in the OL format: the same
+    files, lane counts equal, points within 0.11 px (the format prints one
+    decimal of half-scale pixels, so a 1e-5 difference can move the last
+    digit), the ground-truth files byte-equal. Returns the lane count."""
+    from phnet_torch.evaluation.emit import read_lines_txt
+
+    out = {}
+    for name, pipe in (("jax", jpipe), ("torch", tpipe)):
+        out[name] = pipe.run_and_emit(data, str(tmp_path / f"{name}_pred"),
+                                      str(tmp_path / f"{name}_anno"),
+                                      fmt="ol")
+    assert out["torch"]["frames"] == out["jax"]["frames"] == sum(
+        len(c["frame_names"]) for c in data)
+    files = lines_files(tmp_path / "jax_pred")
+    assert files == lines_files(tmp_path / "torch_pred")
+    assert len(files) == out["jax"]["frames"]
+    n_lanes = 0
+    for f in files:
+        jl = read_lines_txt(str(tmp_path / "jax_pred" / f))
+        tl = read_lines_txt(str(tmp_path / "torch_pred" / f))
+        assert len(tl) == len(jl), f
+        for a, b in zip(jl, tl):
+            assert len(a) == len(b), f
+            np.testing.assert_allclose(b, a, rtol=0, atol=0.11, err_msg=f)
+        n_lanes += len(tl)
+        assert ((tmp_path / "torch_anno" / f).read_bytes()
+                == (tmp_path / "jax_anno" / f).read_bytes())
+    return n_lanes
+
+
+def pipelines(jc, tc, variables, chunk):
+    """A function of a quantize mode giving (JAX pipeline, port pipeline)
+    in chunks of ``chunk`` frames, each built once: a mode's JAX chunk
+    compiles once for all the tests that use it."""
+    import dataclasses
+
+    from phnet_torch.config import Config as TorchConfig
+    from phnet_torch.convert import convert
+    from phnet_torch.pipeline import InferencePipeline as TorchPipeline
+    from phnet_tpu.config import Config as JaxConfig
+    from phnet_tpu.pipeline import InferencePipeline as JaxPipeline
+
+    made = {}
+
+    def get(mode):
+        if mode not in made:
+            made[mode] = (
+                JaxPipeline(JaxConfig(model=dataclasses.replace(
+                    jc, quantize=mode)), jax_tree(variables), chunk=chunk),
+                TorchPipeline(TorchConfig(model=dataclasses.replace(
+                    tc, quantize=mode)), convert(variables), chunk=chunk,
+                    device="cpu"))
+        return made[mode]
+
+    return get
+
+
+def run_chunk(pipes, frames):
+    """One chunk of a clip ([1, T, H, W, 3]) through ``detect`` in both
+    packages, the memory starting empty, by the pipelines' own chunk
+    functions: {output name: (port, JAX)}; JAX's keep counts are its
+    valid slots' sums."""
+    from phnet_torch.models.phnet import init_memory as torch_init_memory
+    from phnet_tpu.models.phnet import init_memory as jax_init_memory
+
+    jpipe, tpipe = pipes
+    jk, jv, jmem = jpipe._run_chunk(
+        jpipe.variables, jnp.asarray(frames),
+        jax_init_memory(jpipe.mcfg, 1, jpipe.memory_window))
+    with torch.no_grad():
+        tout, tmem = tpipe.model(
+            torch.from_numpy(frames), dyn_combined=tpipe._dyn,
+            initial_memory=torch_init_memory(tpipe.mcfg, 1,
+                                             tpipe.memory_window))
+    return {"kept": (tout.kept, jk), "kept_valid": (tout.kept_valid, jv),
+            "num_kept": (tout.num_kept, jv.sum(-1)),
+            "memory values": (tmem.values, jmem.values),
+            "memory mask": (tmem.mask, jmem.mask)}
+
+
+def check_clip_output(out, name, atol):
+    """One output of :func:`run_chunk`: floats within ``atol``, the rest
+    equal; lanes kept."""
+    g, r = to_np(out[name][0]), np.asarray(out[name][1])
+    assert g.shape == r.shape
+    if g.dtype == np.float32:
+        np.testing.assert_allclose(g, r, rtol=0, atol=atol)
+    else:
+        np.testing.assert_array_equal(g, r)
+    assert int(out["num_kept"][0].sum()) > 0

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Where a serving tick of the PyTorch port spends its time on the card.
 
-    python tools/torch_serving_profile.py [--streams 4] [--ticks 8]
-        [--quantize {none,w8,int8}]
+    python tools/torch_serving_profile.py [--preset {vil,openlane,openlane_ms}]
+        [--streams 4] [--ticks 8] [--quantize {none,w8,int8}]
 
-Serves the full-width VIL-100 model (the seeded weights of
-``chip_smoke.py``; ``--quantize`` picks the generator chains' numerics:
-float32, the w8 matmul kernel, or int8 GEMMs) through
-``phnet_torch.serving.StreamingServer``, warms
-up, times ``--ticks`` ticks without the profiler, then traces as many
-with ``torch.profiler`` (CPU + CUDA). Prints the card's name and power
-limit, the tick wall time with and without the profiler (which adds host
-time to every operation), the device busy share (kernel time over the
-wall time without the profiler), kernel launches per tick, the device
-time by kernel group and the top kernels, and one JSON summary line.
+Serves a full-width model (``--preset``: ``vil100_config``,
+``openlane_config`` or ``openlane_multiscale_config``; the seeded weights
+of ``chip_smoke.py``; ``--quantize`` picks the generator chains'
+numerics: float32, the w8 matmul kernel, or int8 GEMMs) through
+``phnet_torch.serving.StreamingServer``, warms up, times ``--ticks``
+ticks without the profiler (each tick fetches its lanes, so it waits for
+the card), then traces as many with ``torch.profiler`` (CPU + CUDA).
+Prints the card's name and power limit, the tick wall time (mean, p50,
+p99) with and without the profiler (which adds host time to every
+operation), frames/s, the peak device memory, the device busy share
+(kernel time over the wall time without the profiler), kernel launches
+per tick, the device time by kernel group and the top kernels, and one
+JSON summary line.
 Float32: the flags are left at torch's defaults, as a user leaves them,
 and the model turns TF32 off itself (``phnet_torch.device.full_f32``).
 Needs a CUDA card.
@@ -54,8 +57,13 @@ def group_of(name: str) -> str:
     return "elementwise / other"
 
 
+PRESETS = {"vil": "vil100_config", "openlane": "openlane_config",
+           "openlane_ms": "openlane_multiscale_config"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--preset", choices=tuple(PRESETS), default="vil")
     ap.add_argument("--streams", type=int, default=4)
     ap.add_argument("--ticks", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=3)
@@ -67,7 +75,6 @@ def main() -> int:
         return 2
 
     import chip_smoke
-    from phnet_torch.config import vil100_config
     from phnet_torch.serving import StreamingServer
 
     card = subprocess.run(
@@ -75,7 +82,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
-    cfg = chip_smoke.quantized(vil100_config(), args.quantize)
+    cfg = chip_smoke.preset_config(PRESETS[args.preset], args.quantize)
     server = StreamingServer(cfg, chip_smoke.seeded_state_dict(torch, cfg),
                              max_streams=args.streams)
     sids = [server.attach() for _ in range(args.streams)]
@@ -94,11 +101,15 @@ def main() -> int:
     for _ in range(args.warmup):
         tick()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
     for _ in range(args.ticks):
+        t0 = time.perf_counter()
         tick()
+        walls.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    plain_wall_ms = sum(walls)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -117,12 +128,16 @@ def main() -> int:
         by_group[group_of(e.name)] += us
     device_ms = sum(by_name.values()) / 1e3
     per_tick = plain_wall_ms / args.ticks
-    print(f"{args.ticks} ticks of {args.streams} streams, quantize="
-          f"{args.quantize}: wall "
-          f"{per_tick:.3f} ms/tick ({wall_ms / args.ticks:.3f} under the "
-          f"profiler), device kernel time {device_ms / args.ticks:.3f} "
-          f"ms/tick, busy share {device_ms / plain_wall_ms:.3f}, "
-          f"{len(kernels) / args.ticks:.0f} kernel launches/tick [{card}]")
+    p50, p99 = np.percentile(walls, 50), np.percentile(walls, 99)
+    fps = args.streams * args.ticks / plain_wall_ms * 1e3
+    print(f"{args.ticks} ticks of {args.streams} streams, preset "
+          f"{args.preset}, quantize={args.quantize}: wall {per_tick:.3f} "
+          f"ms/tick (p50 {p50:.3f}, p99 {p99:.3f}; {wall_ms / args.ticks:.3f}"
+          f" under the profiler), {fps:.2f} frames/s, peak device memory "
+          f"{peak_mib:.1f} MiB, device kernel time "
+          f"{device_ms / args.ticks:.3f} ms/tick, busy share "
+          f"{device_ms / plain_wall_ms:.3f}, {len(kernels) / args.ticks:.0f} "
+          f"kernel launches/tick [{card}]")
     for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {group:26s} {us / 1e3 / args.ticks:8.3f} ms/tick "
               f"({us / 1e3 / device_ms:.3f} of device time)")
@@ -130,9 +145,10 @@ def main() -> int:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / 1e3 / args.ticks:8.3f}  {name[:110]}")
     print(json.dumps({
-        "card": card, "streams": args.streams, "ticks": args.ticks,
-        "quantize": args.quantize,
-        "wall_ms_per_tick": per_tick,
+        "card": card, "preset": args.preset, "streams": args.streams,
+        "ticks": args.ticks, "quantize": args.quantize,
+        "wall_ms_per_tick": per_tick, "wall_ms_p50": p50,
+        "wall_ms_p99": p99, "frames_per_s": fps, "peak_mib": peak_mib,
         "profiled_wall_ms_per_tick": wall_ms / args.ticks,
         "device_ms_per_tick": device_ms / args.ticks,
         "busy_share": device_ms / plain_wall_ms,
