@@ -50,8 +50,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     seeded 6-frame clips in chunks of 4, emitting ``.lines.txt`` files;
     the counters must show every frame going through all three kernels;
 11. lane NMS at OpenLane-V's shape: phase 3 with OL's lane layout (one
-    length field), 72 offsets, top_k 4, confidence 0.5 (the unrolled
-    O = 72 instance of the kernel);
+    length field), 72 offsets, top_k 4, confidence 0.5 (the kernel's
+    run-time-O path);
 12. the w8 matmul at the multi-scale head's 13 products a frame (from
     the preset's DynamicConv chains, ``w8_products``), 1 and 4 streams:
     phase 7's checks (and two calls bit-equal) per product, the sums per

@@ -171,9 +171,10 @@ class ModelConfig:
     test: TestParams = field(default_factory=TestParams)
     max_lanes: int = 8
     routing: str = "hard"  # "hard" (VIL) | "soft" (OL)
-    # original-image geometry of the datasets (read by their emitters and
-    # loaders, not by the model): VIL crops the top cut_scale * H, OL a
-    # fixed crop_size rows of its org_size images
+    # original-image geometry of the datasets, read by the pipeline's
+    # emission (not by the model): VIL crops the top cut_scale * H of each
+    # image, OL the top crop_size rows of its org_size (H, W) images and
+    # emits in that cropped frame shifted back by crop_size rows
     cut_scale: float = 0.35
     crop_size: int = 0
     org_size: Optional[Tuple[int, int]] = None
@@ -353,7 +354,10 @@ def openlane_multiscale_config(n_offsets: int = 72, **overrides) -> Config:
     by ``testOLV3.py`` with ``options/options4OLV3.py``): neck levels
     (64, 128, 256) -> (16, 32, 64) from the backbone's first three stages,
     per-stage sample points (24, 48, 96) over channels (64, 32, 16), a
-    256-wide decode and decoder, hard routing at inference."""
+    256-wide decode and decoder (ffn 512), DynamicConv generators reduced
+    by 4, sine positions at temperature 64 without normalization, hard
+    routing at inference. The JAX package's multi-scale head fixes the
+    last three to these values; the port's head reads them from here."""
     base = openlane_config(n_offsets=n_offsets)
     model = dataclasses.replace(
         base.model,
@@ -361,7 +365,8 @@ def openlane_multiscale_config(n_offsets: int = 72, **overrides) -> Config:
         neck=NeckConfig(in_channels=(64, 128, 256), out_channels=(16, 32, 64),
                         num_outs=3),
         head=HeadConfig(variant="multi", fc_hidden_dim=256,
-                        decoder_ffn_dim=512, pos_encoding="sine",
+                        decoder_ffn_dim=512, dyn_param_reduction=4,
+                        pos_encoding="sine",
                         pos_temperature=64.0, pos_normalize=False,
                         separate_offset_head=False,
                         ms_sample_points=(24, 48, 96),

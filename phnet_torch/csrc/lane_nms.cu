@@ -29,15 +29,13 @@
 // memory. Each pick is a warp max of a 64-bit key, one barrier (the
 // partials are double buffered, so no second one) and a max over the
 // warps' partials in a fixed order; each thread then tests the rows it
-// owns against the pick. At the presets' shapes (O = 36 for VIL-100 and
-// 72 for OpenLane-V, A <= 256: one row a thread) O is a template
-// parameter: the thread's key, window and scaled xs sit in registers, the
-// warp max is one redux.sync of the score half and a ballot for the lowest
-// lane, and a test reads the pick's scaled xs as O / 4 broadcast float4s
-// and makes O dependent adds (O = 72: 114 registers a thread, no spills;
-// 0.0072 ms at 4 x 240 against 0.0093 ms through the run-time path).
-// Other shapes read both rows from shared memory and scale the xs where
-// they are used.
+// owns against the pick. At the path's shape (O = 36, A <= 256: one row a
+// thread) O is a template parameter: the thread's key, window and scaled
+// xs sit in registers, the warp max is one redux.sync of the score half
+// and a ballot for the lowest lane, and a test reads the pick's scaled xs
+// as 9 broadcast float4s and makes 36 dependent adds. Other shapes
+// (OpenLane-V's O = 72 among them) read both rows from shared memory and
+// scale the xs where they are used.
 
 // Bit-equality with the plain PyTorch version (phnet_torch/ops/nms.py):
 // the strip windows are computed with the _rn intrinsics, so nvcc cannot
@@ -56,8 +54,7 @@ namespace {
 constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kRowsPerThread = 32;  // bits of the candidate mask
-constexpr int kVilOffsets = 36;     // the presets' O, unrolled
-constexpr int kOpenLaneOffsets = 72;
+constexpr int kPathOffsets = 36;    // the path's O, unrolled
 
 struct Params {
   const float* rows;            // [B, A, dim]
@@ -359,10 +356,7 @@ extern "C" int lane_nms_launch(const float* rows, const float* scores,
                  num_kept, keep_mask, A, dim, col_start, col_len, col_xs,
                  n_offsets, top_k, xs_scale, len_scale, conf, thresh,
                  copy16};
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (n_offsets == kVilOffsets && A <= kMaxThreads)
-    return launch<kVilOffsets>(p, B, threads, s);
-  if (n_offsets == kOpenLaneOffsets && A <= kMaxThreads)
-    return launch<kOpenLaneOffsets>(p, B, threads, s);
-  return launch<0>(p, B, threads, s);
+  if (n_offsets == kPathOffsets && A <= kMaxThreads)
+    return launch<kPathOffsets>(p, B, threads, (cudaStream_t)stream);
+  return launch<0>(p, B, threads, (cudaStream_t)stream);
 }

@@ -6,10 +6,12 @@ level first) the anchors are pooled at ``ms_sample_points[s]`` points
 over ``ms_channels[s]`` channels (24 x 64, 48 x 32, 96 x 16 on the
 preset: a constant 1536 values an anchor) by :func:`bilinear_sample`; a
 Conv1d router (:class:`ConvRouter`) scores them; the V2 DynamicConv maps
-them into the shared 256-wide decode; the positions (a sine table,
-temperature 64, not normalized) are added to the embedding, not
-concatenated, before the 256-wide temporal decoder (ffn 512); each branch
-has a cls and a geometry-and-offsets :class:`BranchHead`.
+them into the shared 256-wide decode; the positions (on the preset a
+sine table, temperature 64, not normalized) are added to the embedding,
+not concatenated, before the 256-wide temporal decoder (ffn 512); each
+branch has a cls and a geometry-and-offsets :class:`BranchHead`. The
+positions, the decoder's ffn width and the generators' reduction come
+from ``cfg.head``; the generators' hidden width is twice the decode's.
 
 Deviation kept from the JAX package (``head_ms.py:12-15``): the
 reference's router normalizes with BatchNorm1d inside the per-frame loop;
@@ -136,11 +138,13 @@ class MultiScaleLaneHead(AnchorHead):
                                  self._sample_ys(spec.n_offsets, p),
                                  persistent=False)
         self.pos_encoding = AnchorPositionalEncoding(
-            h.num_priors, d, "sine", temperature=64.0, normalize=False)
+            h.num_priors, d, h.pos_encoding, h.pos_temperature,
+            h.pos_normalize)
         self.pro_embedding = nn.Parameter(torch.empty(h.num_priors, d))
         self.dyn_heads = nn.ModuleList(
             DynamicConv(feat_size=pts[s], hidden_dim=chs[s],
-                        dim_factor=h.dyn_dim_factor, param_reduction=4,
+                        dim_factor=h.dyn_dim_factor,
+                        param_reduction=h.dyn_param_reduction,
                         out_dim=d, out_hidden=2 * d, pro_dim=d,
                         quantize=cfg.quantize)
             for s in range(h.refine_layers))
@@ -153,7 +157,8 @@ class MultiScaleLaneHead(AnchorHead):
         self.cls_sec = BranchHead(d, 2, h.num_fc)
         self.reg_sec = BranchHead(d, reg_dim, h.num_fc)
         self.temporal_decoder = TemporalDecoder(
-            d, h.decoder_layers, h.decoder_heads, 2 * d, h.decoder_dropout)
+            d, h.decoder_layers, h.decoder_heads, h.decoder_ffn_dim,
+            h.decoder_dropout)
 
     def reset_parameters(self, g: torch.Generator):
         super().reset_parameters(g)

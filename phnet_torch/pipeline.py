@@ -86,6 +86,21 @@ class InferencePipeline:
                      for t in range(t_total)]
         return per_frame, model_seconds
 
+    def _clip_geometry(self, clip, fmt: str) -> Tuple[Tuple[int, int],
+                                                      int, int]:
+        """(emission frame (H, W), ori_img_h, cut_height) of a clip. VIL:
+        the clip's original size, its ``cut`` or else the top
+        ``cut_scale`` of it (the VIL loader's crop). OL: the clip's
+        ``size`` or else ``org_size`` less its top ``crop_size`` rows; the
+        decode leaves y in that frame."""
+        m = self.mcfg
+        if fmt == "vil":
+            size = clip["size"]
+            return size, size[0], clip.get("cut", int(size[0] * m.cut_scale))
+        size = clip.get("size") or (m.org_size[0] - m.crop_size,
+                                    m.org_size[1])
+        return size, 0, 0
+
     # ------------------------------------------------------------------
     def run_and_emit(self, dataset, pred_dir: str,
                      anno_dir: Optional[str] = None, fmt: str = "vil",
@@ -93,8 +108,9 @@ class InferencePipeline:
                      verbose: bool = False) -> Dict:
         """Run whole videos and emit CULane txt files; optionally also GT.
         ``dataset``: indexable (or with ``get_clip``) clip dicts with
-        ``frames``, ``size``, ``name``, ``frame_names``, ``points`` and an
-        optional ``cut``. Returns ``{'fps', 'frames', 'videos'}`` like the
+        ``frames``, ``name``, ``frame_names``, ``points``, ``size`` (which
+        OL clips may leave to the config) and an optional ``cut``. OL
+        lines are shifted back by the config's ``crop_size`` rows. Returns ``{'fps', 'frames', 'videos'}`` like the
         reference's per-video fps printout (``testVIL.py:127-130``)."""
         indices = list(video_indices) if video_indices is not None else list(
             range(len(dataset)))
@@ -103,15 +119,14 @@ class InferencePipeline:
         for i in indices:
             clip = (dataset.get_clip(i) if hasattr(dataset, "get_clip")
                     else dataset[i])
-            size = clip["size"]
-            self._ori_h = size[0] if fmt == "vil" else 0
-            self._cut = clip.get("cut", 0)
+            size, self._ori_h, self._cut = self._clip_geometry(clip, fmt)
             lanes_per_frame, secs = self.run_video(clip["frames"])
             total_frames += len(lanes_per_frame)
             total_seconds += secs
             names.append(clip["name"])
             for fname, lanes in zip(clip["frame_names"], lanes_per_frame):
-                write_pred_txt(pred_dir, clip["name"], fname, lanes, size, fmt)
+                write_pred_txt(pred_dir, clip["name"], fname, lanes, size, fmt,
+                               crop_offset=self.mcfg.crop_size)
             if anno_dir is not None:
                 for fname, pts in zip(clip["frame_names"], clip["points"]):
                     write_gt_txt(anno_dir, clip["name"], fname, pts)

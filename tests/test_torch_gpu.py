@@ -135,7 +135,7 @@ def test_nms_keeps_kernel_in_cuda_graph(cuda):
 
 
 def test_nms_keeps_kernel_in_cuda_graph_at_openlane_shape(cuda):
-    """As above at ``openlane_config``'s shape (the O = 72 instance)."""
+    """As above at ``openlane_config``'s shape (O = 72: the run-time path)."""
     check_nms_keeps_in_graph(cuda, 72, 1, 4, 0.5)
 
 

@@ -1,7 +1,6 @@
 """The port stands alone: no module of ``phnet_torch``, nothing in
-``chip_smoke.py`` and nothing in the port's tools
-(``tools/torch_serving_profile.py``, ``tools/torch_train_profile.py``,
-``tools/torch_nms_instances.py``) imports JAX, flax, optax or the JAX
+``chip_smoke.py`` and nothing in ``tools/torch_serving_profile.py`` or
+``tools/torch_train_profile.py`` imports JAX, flax, optax or the JAX
 package, and its entry points run on the card by default (so they raise
 where there is none), the OpenLane-V presets' included."""
 
@@ -27,7 +26,6 @@ def port_sources():
     return (sorted((REPO / "phnet_torch").rglob("*.py"))
             + [REPO / "tools" / "torch_serving_profile.py",
                REPO / "tools" / "torch_train_profile.py",
-               REPO / "tools" / "torch_nms_instances.py",
                REPO / "chip_smoke.py"])
 
 
@@ -53,8 +51,7 @@ def test_port_sources_exist():
             "phnet_torch/train/trainer.py", "phnet_torch/train/__main__.py",
             "phnet_torch/data/synthetic.py", "phnet_torch/data/loader.py",
             "tools/torch_train_profile.py", "phnet_torch/models/head_ms.py",
-            "phnet_torch/ops/sampler.py",
-            "tools/torch_nms_instances.py"} <= names
+            "phnet_torch/ops/sampler.py"} <= names
     assert (REPO / "phnet_torch" / "csrc" / "w8_matmul.cu").is_file()
 
 

@@ -67,7 +67,14 @@ def setup():
 @pytest.mark.parametrize("preset", ["openlane_config",
                                     "openlane_multiscale_config"])
 def test_preset_matches_jax(preset):
-    """Every field the port's preset has equals the JAX preset's."""
+    """Every field the port's preset has equals the JAX preset's, but for
+    the multi-scale preset's ``head.dyn_param_reduction``: the port's head
+    reads it, so the preset states the 4 that the JAX package's head fixes
+    in code (``phnet_tpu/models/head_ms.py``) beside its unread 8."""
+    # the port's value where the JAX preset's field is not the one that runs
+    read_here = ({"model.head.dyn_param_reduction": 4}
+                 if preset == "openlane_multiscale_config" else {})
+
     def fields(x):
         return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
 
@@ -76,6 +83,8 @@ def test_preset_matches_jax(preset):
             want = getattr(ref, name)
             if dataclasses.is_dataclass(value):
                 compare(value, want, f"{where}.{name}")
+            elif f"{where}.{name}" in read_here:
+                assert value == read_here[f"{where}.{name}"] != want
             else:
                 assert value == want, f"{where}.{name}"
 
@@ -244,6 +253,47 @@ def test_pipeline_matches_jax(pipelines, tmp_path):
     assert tpipe.memory_window == jpipe.memory_window == 2
     assert tp.compare_pipelines(jpipe, tpipe, tp.ol_clips(FRAME),
                                 tmp_path) > 0
+
+
+def test_pipeline_emits_in_config_geometry(setup, pipelines, tmp_path):
+    """The emission reads the config's geometry. OL: a clip without its
+    own ``size`` is emitted in ``org_size`` less ``crop_size`` rows (the
+    same bytes as with OL's frame given), and a crop of 400 rows in place
+    of 480 moves every emitted y by -40 half-scale px, x unchanged. VIL: a
+    clip without its ``cut`` is cut at ``cut_scale`` of its height."""
+    from phnet_torch.evaluation.emit import read_lines_txt
+    from phnet_torch.pipeline import InferencePipeline as TorchPipeline
+
+    _, tc, variables, _ = setup
+    _, base = pipelines("none")
+    crop400 = TorchPipeline(tcfg.Config(model=dataclasses.replace(
+        tc, crop_size=400)), convert(variables), chunk=CHUNK, device="cpu")
+    clips = tp.ol_clips(FRAME, lengths=(3,))
+    sizeless = [{k: v for k, v in c.items() if k != "size"} for c in clips]
+    out = {}
+    for name, pipe, data in (("given", base, clips),
+                             ("sizeless", base, sizeless),
+                             ("crop400", crop400, clips)):
+        pipe.run_and_emit(data, str(tmp_path / name), fmt="ol")
+        out[name] = {f: read_lines_txt(str(tmp_path / name / f))
+                     for f in tp.lines_files(tmp_path / name)}
+        assert name == "given" or set(out[name]) == set(out["given"])
+    n_lanes = 0
+    for f in out["given"]:
+        assert ((tmp_path / "sizeless" / f).read_bytes()
+                == (tmp_path / "given" / f).read_bytes())
+        assert len(out["crop400"][f]) == len(out["given"][f])
+        for a, b in zip(out["given"][f], out["crop400"][f]):
+            a, b = np.asarray(a), np.asarray(b)
+            np.testing.assert_array_equal(b[:, 0], a[:, 0])
+            np.testing.assert_allclose(b[:, 1], a[:, 1] - 40.0, rtol=0,
+                                       atol=0.11)
+            n_lanes += 1
+    assert n_lanes > 0
+    assert base._clip_geometry({"size": (720, 1280)}, "vil") == (
+        (720, 1280), 720, int(720 * tc.cut_scale))
+    assert base._clip_geometry({"size": (720, 1280), "cut": 100},
+                               "vil") == ((720, 1280), 720, 100)
 
 
 @pytest.mark.parametrize("seed", range(4))

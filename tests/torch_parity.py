@@ -71,6 +71,8 @@ def small_ol_cfg(cfgmod, quantize: str = "none"):
                                nms_topk=4),
         max_lanes=4,
         routing="soft",
+        crop_size=480,
+        org_size=(1280, 1920),
         quantize=quantize,
     )
 
@@ -87,7 +89,9 @@ def small_ms_cfg(cfgmod, quantize: str = "none"):
         neck=cfgmod.NeckConfig(in_channels=(8, 16, 24),
                                out_channels=(4, 8, 16), num_outs=3),
         head=cfgmod.HeadConfig(num_priors=32, fc_hidden_dim=32,
-                               decoder_ffn_dim=64, variant="multi",
+                               decoder_ffn_dim=64, dyn_param_reduction=4,
+                               pos_temperature=64.0, pos_normalize=False,
+                               variant="multi",
                                ms_sample_points=(6, 12, 24),
                                ms_channels=(16, 8, 4)),
         memory=cfgmod.MemoryConfig(window=3),
@@ -95,6 +99,8 @@ def small_ms_cfg(cfgmod, quantize: str = "none"):
                                nms_topk=4),
         max_lanes=4,
         routing="hard",
+        crop_size=480,
+        org_size=(1280, 1920),
         quantize=quantize,
     )
 
