@@ -82,14 +82,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 17. the trainer: ``phnet_torch.train.trainer.train`` for one epoch of 2
     steps on 2 synthetic 4-frame videos into a temporary directory, then
     resumed for a second epoch: both epochs' losses finite, and the resume
-    restores step, epoch and the curriculum's ``max_skip``.
+    restores step, epoch and the curriculum's ``max_skip``;
+18. the router chain's bf16 mode (the chain the server runs above 8
+    streams, a second instance of the same kernel) against
+    ``router_chain_plain(bf16=True)`` at 4 and 16 streams, timed beside
+    the float32 instance (tolerance in :func:`phase_router_bf16`);
+19. the w8 matmul fed bf16 x, as the bf16 model feeds it: the four
+    products of a VIL stage at 4 streams, bit-equal to the float32-x call
+    on the same values, timed beside cuBLAS's bf16 GEMM;
+20. bf16 inference (``compute_dtype="bfloat16"``): VIL served at 4
+    streams unquantized and in w8 (lane NMS once, the float32 router chain
+    three times and, in w8, the w8 matmul 12 times a tick), each held card
+    against CPU (tolerance in :func:`phase_end_to_end`); VIL served in
+    float32 at 16 streams, where the server turns the chain's bf16 mode on
+    (the counters must show it three times a tick, the float32 mode never),
+    held card against CPU with the mode pinned; ``openlane_config`` served
+    in bf16 at 4 streams.
 
-Float32 throughout outside the quantized products. The model turns TF32
-off itself (``phnet_torch.device.full_f32``); the script also turns it off
-for the plain versions it holds the kernels against. The line before the
-last holds one JSON object per kernel (K2's with its launches in a
-training step beside its serving launches; each kernel's launches and
-times on the OpenLane-V paths under ``openlane_*`` keys); the last line is
+Float32 outside the quantized products and the bf16 phases 18-20. The
+model turns TF32 off itself (``phnet_torch.device.full_f32``); the script
+also turns it off for the plain versions it holds the kernels against.
+The line before the last holds one JSON object per kernel (K2's with its
+launches in a training step beside its serving launches; each kernel's
+launches and times on the OpenLane-V paths under ``openlane_*`` keys; K2's
+bf16 mode and K3 at bf16 x as entries of their own); the last line is
 ``{"ok": true, "device": {...}}``.
 Without a card, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -478,6 +494,170 @@ def phase_router(torch, card):
     return out
 
 
+def phase_router_bf16(torch, card):
+    """K2's bf16 mode (the chain the server runs above 8 streams) against
+    ``router_chain_plain(bf16=True)`` at 4 and 16 streams: bf16 out, two
+    calls bit-equal, max |diff| within 2**-6 of max |plain| and under 1% of
+    the elements differing (both round at the same points, but their
+    LayerNorm sums run in other orders, so a rare element lands one bf16
+    ulp apart and moves its neighbours in the next 3x3); the router score
+    (the bf16 chain into the float32 MLP, whose seeded weights amplify a
+    flipped ulp) within twice the plain version's own spread when each
+    element of x moves by -1, 0 or +1 bf16 ulp. Timed beside the float32
+    instance at the same width. Returns the numbers by streams."""
+    from phnet_torch.models.router import AdaptiveRouter
+    from phnet_torch.ops import router_chain as trc
+
+    dev = torch.device("cuda")
+    a, c, p, blocks = 240, 64, 36, 4
+    router = AdaptiveRouter(a, c, p, chain_bf16=True).to(dev)
+    router.reset_parameters(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        lnp = router.ln_params
+        lnp.add_(0.1 * torch.randn(lnp.shape, generator=torch.Generator(
+        ).manual_seed(2)).to(dev))
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for streams in (4, 16):
+        g = torch.Generator().manual_seed(20 + streams)
+        feats = torch.randn((streams, a, c, p), generator=g).to(dev)
+        x = feats.reshape(streams * a, c, p)
+        args = (x, router.taps.data, router.conv_bias.data,
+                router.ln_params.data, blocks)
+        got = trc.router_chain(*args, bf16=True)
+        again = trc.router_chain(*args, bf16=True)
+        torch.cuda.synchronize()
+        ref = trc.router_chain_plain(*args, bf16=True)
+        d = (got.float() - ref.float()).abs()
+        err, top = d.max().item(), ref.float().abs().max().item()
+        frac = (d > 0).float().mean().item()
+        k = torch.randint(-1, 2, x.shape, generator=torch.Generator(
+        ).manual_seed(30 + streams)).to(dev)
+        moved = trc.router_chain_plain(x * (1 + k * 2.0 ** -8), *args[1:],
+                                       bf16=True)
+
+        def mlp(chain):
+            h = torch.relu(router.dense0(chain.float().reshape(
+                streams, a, c * p)))
+            return torch.sigmoid(torch.relu(router.dense1(h)))
+
+        with torch.no_grad():
+            score, score_ref = router(feats), mlp(ref)
+            own = (mlp(moved) - score_ref).abs().max().item()
+        score_err = (score - score_ref).abs().max().item()
+        if got.dtype != torch.bfloat16 or not torch.equal(got, again):
+            raise AssertionError(f"router_chain bf16 kernel at B={streams}:"
+                                 f" dtype {got.dtype}, or two calls differ")
+        if not (err <= top / 64 and frac < 0.01 and score_err <= 2 * own):
+            raise AssertionError(
+                f"router_chain bf16 kernel at B={streams}: max |diff| {err} "
+                f"(max |plain| {top}), {frac:.3g} of the elements differ, "
+                f"score {score_err} (plain's own one-ulp spread {own})")
+        ms = device_ms(torch, lambda: trc.router_chain(*args, bf16=True))
+        f32_ms = device_ms(torch, lambda: trc.router_chain(*args))
+        plain_ms = device_ms(torch, lambda: trc.router_chain_plain(
+            *args, bf16=True))
+        n = streams * a
+        nbytes = (4 * n * c * p + 2 * n * c * p  # x f32 in, bf16 out
+                  + 4 * (a * blocks * 20 + (2 + 4 * blocks) * c * p))
+        bound_ms, bound_by = bound(nbytes, chain_ops(n, c, p, blocks))
+        plan = trc.router_plan(n, a, n_sms, c, p)
+        print(f"[router_chain bf16] B={streams} [{n}, {c}, {p}]: max |diff|"
+              f" {err:.3g} of max |plain| {top:.3g}, {frac:.3g} of the "
+              f"elements differ, score {score_err:.3g} (the plain version's "
+              f"own one-ulp spread {own:.3g}), two calls bit-equal;"
+              f" device time: kernel {ms:.4f} ms (the float32 instance "
+              f"{f32_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}; {bound_ms / ms:.3f} of it); "
+              f"G={plan.group}, grid {plan.grid}, dynamic shared memory "
+              f"{trc.smem_bytes(c, p, plan.group, blocks, bf16=True)} B a "
+              f"CTA (float32 "
+              f"{trc.smem_bytes(c, p, plan.group, blocks)} B) [{card}]")
+        out[streams] = {"max_abs_err": max(err, score_err), "ms": ms,
+                        "f32_ms": f32_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+def phase_w8_bf16x(torch, card, streams=4):
+    """K3 fed bf16 x, as the bf16 model's generator chains feed it: the four
+    products of a VIL refine stage at ``streams`` streams, bit-equal to
+    the float32-x call on the same values and within 1e-5 of max |plain|,
+    timed beside the float32-x call and cuBLAS's bf16 GEMM (f32 out) of the
+    same operands. Returns the stage's sums."""
+    from phnet_torch.ops import quant as tq
+    from phnet_torch.ops import w8_matmul as tw8
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, k, n in W8_PRODUCTS:
+        m = 240 * streams
+        rng = np.random.default_rng(m + k + n + 1)
+        xb = torch.from_numpy(rng.normal(size=(m, k)).astype(
+            np.float32)).to(dev).bfloat16()
+        wq, sw = tq.quantize_colwise(torch.from_numpy(
+            (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)).to(dev))
+        got = tw8.w8_matmul(xb, wq, sw)
+        same = tw8.w8_matmul(xb.float(), wq, sw)
+        torch.cuda.synchronize()
+        ref = tq.w8_matmul_prequant(xb, wq, sw)
+        err = (got - ref).abs().max().item()
+        if not (torch.equal(got, same)
+                and err <= 1e-5 * ref.abs().max().item()):
+            raise AssertionError(f"w8_matmul at bf16 x {m}x{k}x{n}: not the "
+                                 f"float32-x call's bits, or max |diff| "
+                                 f"{err} from plain")
+        ms = device_ms(torch, lambda: tw8.w8_matmul(xb, wq, sw))
+        f32x = xb.float()
+        f32x_ms = device_ms(torch, lambda: tw8.w8_matmul(f32x, wq, sw))
+        plain_ms = device_ms(torch, lambda: tq.w8_matmul_prequant(xb, wq, sw))
+        wb = wq.bfloat16()
+        library_ms = device_ms(torch, lambda: torch.mm(
+            xb, wb, out_dtype=torch.float32))
+        nbytes = 2 * m * k + k * n + 4 * n + 4 * m * n
+        bound_ms, bound_by = bound(nbytes, 2 * m * k * n, BF16_FLOPS)
+        print(f"[w8_matmul bf16 x] {name} B={streams} [{m}, {k}] @ [{k}, "
+              f"{n}]: bit-equal to the float32-x call, max |diff| {err:.3g} "
+              f"from plain; device time: kernel {ms:.4f} ms (float32 x "
+              f"{f32x_ms:.4f} ms), plain {plain_ms:.4f} ms, cuBLAS bf16 "
+              f"{library_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}) "
+              f"[{card}]")
+        out[(streams, name)] = {"max_abs_err": err, "ms": ms,
+                                "f32x_ms": f32x_ms, "plain_ms": plain_ms,
+                                "bound_ms": bound_ms, "bound_by": bound_by,
+                                "library_ms": library_ms}
+    st = stage_sum(out, streams)
+    st["f32x_ms"] = sum(out[(streams, n)]["f32x_ms"] for n, _, _ in
+                        W8_PRODUCTS)
+    print(f"[w8_matmul bf16 x] stage (4 products) at B={streams}: kernel "
+          f"{st['ms']:.4f} ms (float32 x {st['f32x_ms']:.4f} ms), cuBLAS "
+          f"{st['library_ms']:.4f} ms ({st['ms'] / st['library_ms']:.2f}x), "
+          f"bound {st['bound_ms']:.6f} ms [{card}]")
+    return st
+
+
+def phase_bf16(torch, card):
+    """The bf16 paths of the port: VIL served in bf16 at 4 streams (none,
+    then w8), each held card against CPU end to end; VIL served in float32
+    at 16 streams, where the server turns the router chain's bf16 mode on
+    (held card against CPU with that mode pinned); ``openlane_config``
+    served in bf16 at 4 streams. Returns ``{name: phase_serving's
+    numbers}``."""
+    out = {}
+    vil = seeded_state_dict(torch, preset_config("vil100_config"))
+    for mode in ("none", "w8"):
+        out[f"vil bf16 {mode}"] = phase_serving(
+            torch, card, vil, mode, compute_dtype="bfloat16")
+        phase_end_to_end(torch, card, vil, mode, compute_dtype="bfloat16")
+    out["vil 16 streams"] = phase_serving(torch, card, vil, ticks=8,
+                                          streams=16)
+    phase_end_to_end(torch, card, vil, chain_bf16=True)
+    ol = seeded_state_dict(torch, preset_config("openlane_config"))
+    out["openlane bf16"] = phase_serving(
+        torch, card, ol, preset="openlane_config", compute_dtype="bfloat16")
+    return out
+
+
 def seeded_state_dict(torch, cfg, seed=0):
     """Full-width weights from ``seed``, on the CPU. The cls output kernels
     of both branches' heads are redrawn with a wide spread and a zero bias
@@ -637,39 +817,47 @@ def stage_sum(w8, streams, names=tuple(n for n, _, _ in W8_PRODUCTS)):
                 bound_by=top["bound_by"])
 
 
-def preset_config(preset, quantize="none"):
+def preset_config(preset, quantize="none", compute_dtype="float32"):
     """``phnet_torch.config``'s preset of that name (``vil100_config``,
-    ``openlane_config``, ``openlane_multiscale_config``) in ``quantize``."""
+    ``openlane_config``, ``openlane_multiscale_config``) in ``quantize``
+    and ``compute_dtype``."""
     from phnet_torch import config
 
-    return quantized(getattr(config, preset)(), quantize)
+    return quantized(getattr(config, preset)(compute_dtype=compute_dtype),
+                     quantize)
 
 
 def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
-                  warmup=2, preset="vil100_config"):
-    """``StreamingServer`` at the preset's full width, 4 streams, one of
-    them skipping every third tick, then a detach and an attach; the
-    kernels' counters are zeroed just before and read just after. Every
-    tick must go through K1 once, K2 three times a tick where the head has
-    the router chain (the single-scale heads) and never where it has not,
-    and K3 once a generator product in w8 and never otherwise. Returns the
+                  warmup=2, preset="vil100_config", compute_dtype="float32",
+                  streams=4):
+    """``StreamingServer`` at the preset's full width in ``compute_dtype``,
+    ``streams`` streams, the last of them skipping every third tick, then
+    a detach and an attach; the kernels' counters are zeroed just before
+    and read just after. Every tick must go through K1 once, K2 three
+    times a tick where the head has the router chain (the single-scale
+    heads; in its bf16 mode above 8 streams, as the server resolves it,
+    and in its float32 mode otherwise) and never where it has not, and K3
+    once a generator product in w8 and never otherwise. Returns the
     launches and the tick's numbers."""
     from phnet_torch.ops import nms as tnms
     from phnet_torch.ops import router_chain as trc
     from phnet_torch.ops import w8_matmul as tw8
     from phnet_torch.serving import StreamingServer
 
-    cfg = preset_config(preset, quantize)
+    cfg = preset_config(preset, quantize, compute_dtype)
     mcfg = cfg.model
     vil = preset == "vil100_config"
     name = "serving" if vil else f"serving {preset.replace('_config', '')}"
-    tag = name if quantize == "none" else f"{name} {quantize}"
+    tag = " ".join([name] + [t for t in (
+        quantize if quantize != "none" else "",
+        "bf16" if compute_dtype == "bfloat16" else "",
+        f"{streams} streams" if streams != 4 else "") if t])
     gc.collect()  # earlier phases' tensors out of the peak below
     torch.cuda.empty_cache()
     getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
-    server = StreamingServer(cfg, state_dict, max_streams=4)
+    server = StreamingServer(cfg, state_dict, max_streams=streams)
     geometry = dict(ori_img_h=1080, cut_height=378) if vil else {}
-    sids = [server.attach(**geometry) for _ in range(4)]
+    sids = [server.attach(**geometry) for _ in range(streams)]
     rng = np.random.default_rng(3)
     shape = (mcfg.img_h, mcfg.img_w, 3)
     torch.cuda.synchronize()
@@ -677,14 +865,14 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
 
     def tick(i, streams):
         frames = {s: rng.normal(size=shape).astype(np.float32)
-                  for s in streams if not (s == sids[3] and i % 3 == 2)}
+                  for s in streams if not (s == sids[-1] and i % 3 == 2)}
         t0 = time.perf_counter()
         kept, valid, got = server.step_async(frames)
         lanes = server.decode(kept, valid, got)  # fetch: waits for the card
         return time.perf_counter() - t0, kept, valid, lanes, len(frames)
 
     tnms.lane_nms.launches = 0
-    trc.router_chain.launches = 0
+    trc.router_chain.launches = trc.router_chain.launches_bf16 = 0
     tw8.w8_matmul.launches = 0
     walls, frames_done, n_lanes, n_ticks = [], 0, 0, 0
     for i in range(warmup + ticks):
@@ -699,26 +887,33 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
     for i in range(2):
         _, kept, valid, lanes, _ = tick(i, sids)
         n_ticks += 1
-    k1, k2, k3 = (tnms.lane_nms.launches, trc.router_chain.launches,
-                  tw8.w8_matmul.launches)
+    k1, k2, k2b, k3 = (tnms.lane_nms.launches, trc.router_chain.launches,
+                       trc.router_chain.launches_bf16,
+                       tw8.w8_matmul.launches)
     peak = torch.cuda.max_memory_allocated()
 
     top_k, dim = mcfg.test.nms_topk, mcfg.lane.dim
-    if tuple(kept.shape) != (4, top_k, dim) or tuple(valid.shape) != (
-            4, top_k):
+    if tuple(kept.shape) != (streams, top_k, dim) or tuple(valid.shape) != (
+            streams, top_k):
         raise AssertionError(f"kept {tuple(kept.shape)} / valid "
-                             f"{tuple(valid.shape)}, want [4, {top_k}, "
-                             f"{dim}] / [4, {top_k}]")
+                             f"{tuple(valid.shape)}, want [{streams}, "
+                             f"{top_k}, {dim}] / [{streams}, {top_k}]")
     if not torch.isfinite(kept).all():
         raise AssertionError("non-finite kept rows")
     if not (server.memory.values.isfinite().all()):
         raise AssertionError("non-finite memory")
     chain_per_tick = 0 if mcfg.head.variant == "multi" else 3
-    if k1 != n_ticks or k2 != chain_per_tick * n_ticks:
+    chain_bf16 = server.mcfg.head.router_chain_bf16
+    if chain_bf16 != (streams > 8):
+        raise AssertionError(f"the server resolved router_chain_bf16 to "
+                             f"{chain_bf16} at {streams} streams")
+    want_k2 = (0, chain_per_tick) if chain_bf16 else (chain_per_tick, 0)
+    if k1 != n_ticks or (k2, k2b) != tuple(w * n_ticks for w in want_k2):
         raise AssertionError(f"kernel launches lane_nms {k1}, router_chain "
-                             f"{k2} over {n_ticks} ticks: want lane NMS once "
-                             f"and the router chain {chain_per_tick} times a "
-                             f"tick")
+                             f"{k2} (float32 mode) and {k2b} (bf16 mode) "
+                             f"over {n_ticks} ticks: want lane NMS once and "
+                             f"the router chain (float32, bf16) {want_k2} "
+                             f"times a tick")
     per_tick = len(w8_products(cfg)) if quantize == "w8" else 0
     if k3 != per_tick * n_ticks:
         raise AssertionError(f"w8_matmul launches {k3} over {n_ticks} ticks "
@@ -731,9 +926,10 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
     w = np.array(walls) * 1e3
     w8_part = f", w8_matmul {k3}" if quantize != "none" else ""
     print(f"[{tag}] {n_ticks} ticks (ticks {warmup}..{warmup + ticks - 1} "
-          f"timed) of 4 streams at {mcfg.img_h}x{mcfg.img_w}, memory window "
-          f"{server.window}, stream 3 skipping every third tick, then "
-          f"detach/attach; launches lane_nms {k1}, router_chain {k2}"
+          f"timed) of {streams} streams at {mcfg.img_h}x{mcfg.img_w} in "
+          f"{mcfg.compute_dtype}, memory window {server.window}, stream "
+          f"{sids[-1]} skipping every third tick, then detach/attach; "
+          f"launches lane_nms {k1}, router_chain {k2} (bf16 mode {k2b})"
           f"{w8_part}; kept lanes in memory {n_kept}, decoded lanes "
           f"{n_lanes}")
     numbers = {"tick_p50_ms": float(np.percentile(w, 50)),
@@ -745,13 +941,27 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
           f"frames/s aggregate, peak device memory "
           f"{numbers['peak_mib']:.1f} MiB [{card}]")
     print(f"[{tag}] stats {json.dumps(server.stats())}")
-    return {"lane_nms": k1, "router_chain": k2, "w8_matmul": k3, **numbers}
+    return {"lane_nms": k1, "router_chain": k2, "router_chain_bf16": k2b,
+            "w8_matmul": k3, **numbers}
 
 
 def phase_end_to_end(torch, card, state_dict, quantize="none",
-                     preset="vil100_config"):
+                     preset="vil100_config", compute_dtype="float32",
+                     chain_bf16=None):
     """The same weights, a 2-frame clip of the preset, on the card and on
     the CPU. Float32: routed predictions within 1e-3, keep sets equal.
+
+    bf16 (``compute_dtype="bfloat16"``, or the router chain's bf16 mode
+    pinned by ``chain_bf16``): the card's cuDNN / cuBLAS products and the
+    CPU's sum in other orders before each bf16 rounding, so rare elements
+    land one bf16 ulp apart, as the port and the JAX package do on the CPU
+    (``tests/test_torch_bf16.py``). The CPU also runs the frames with a
+    random one-ulp change of each element (times ``1 + k * 2**-8``, k in
+    -1, 0, 1); each column group of the routed predictions must be within
+    twice that own spread at the 99th percentile and at most (and within
+    ``BF16_FLOOR``), and the keep counts equal in every frame whose count
+    the CPU's own perturbed run keeps (a count the CPU's own one-ulp change
+    moves is decided inside the bf16 noise; they are printed).
 
     ``"w8"``: the card and the CPU round slightly different f32
     activations to bf16, so rare elements land one bf16 ulp apart, as the
@@ -769,14 +979,24 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
     from phnet_torch.models import PHNet
     from phnet_torch.models.phnet import init_memory
 
-    mcfg = preset_config(preset, quantize).model
+    mcfg = preset_config(preset, quantize, compute_dtype).model
+    if chain_bf16 is not None:
+        mcfg = dataclasses.replace(mcfg, head=dataclasses.replace(
+            mcfg.head, router_chain_bf16=chain_bf16))
+    bf16 = compute_dtype == "bfloat16" or bool(chain_bf16)
     tag = "end-to-end" if preset == "vil100_config" else (
         f"end-to-end {preset.replace('_config', '')}")
-    tag = tag if quantize == "none" else f"{tag} {quantize}"
+    tag = " ".join([tag] + [t for t in (
+        quantize if quantize != "none" else "",
+        "bf16" if compute_dtype == "bfloat16" else "",
+        "bf16 chain" if chain_bf16 else "") if t])
     frames = np.random.default_rng(4).normal(
         size=(1, 2, mcfg.img_h, mcfg.img_w, 3)).astype(np.float32)
     runs = {"cuda": frames, "cpu": frames}
-    if quantize != "none":
+    if bf16:
+        runs["cpu perturbed"] = (frames * (1.0 + 2.0 ** -8 * np.random.default_rng(
+            6).integers(-1, 2, frames.shape))).astype(np.float32)
+    elif quantize != "none":
         runs["cpu perturbed"] = (frames * (1.0 + 1e-6 * np.random.default_rng(
             6).normal(size=frames.shape))).astype(np.float32)
     results = {}
@@ -801,6 +1021,8 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
         "cpu"]
     diff = (r_gpu - r_cpu).abs()
     err = diff.max().item()
+    if bf16:
+        return check_bf16_end_to_end(tag, card, results)
     if quantize == "none":
         if not err <= 1e-3:
             raise AssertionError(f"card vs CPU routed predictions: max "
@@ -841,6 +1063,43 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
           f"{own['lane'][0]:.3g}, max {own['lane'][1]:.3g}; cls logits 99th "
           f"percentile {own['cls'][0]:.3g}, max {own['cls'][1]:.3g} "
           f"[{card}]")
+
+
+BF16_FLOOR = {"cls": (0.5, 4.0), "lane": (5e-2, 1.0)}  # (p99, max)
+
+
+def check_bf16_end_to_end(tag, card, results):
+    """phase_end_to_end's bf16 check (see its docstring)."""
+    (r_gpu, _, n_gpu), (r_cpu, _, n_cpu), (r_own, _, n_own) = (
+        results["cuda"], results["cpu"], results["cpu perturbed"])
+    got, own = {}, {}
+    for part, cols in (("cls", slice(0, 2)), ("lane", slice(2, None))):
+        for out, other in ((got, r_gpu), (own, r_own)):
+            d = (other[..., cols] - r_cpu[..., cols]).abs().numpy()
+            out[part] = (float(np.percentile(d, 99)), float(d.max()))
+    for part in got:
+        limits = tuple(max(2 * o, f) for o, f in zip(own[part],
+                                                     BF16_FLOOR[part]))
+        if not (got[part][0] <= limits[0] and got[part][1] <= limits[1]):
+            raise AssertionError(
+                f"{tag} card vs CPU routed {part} columns: 99th percentile "
+                f"|diff| {got[part][0]}, max {got[part][1]}; limits "
+                f"{limits} (the CPU's own one-ulp spread {own[part]})")
+    fixed = (n_own == n_cpu).numpy()
+    if not fixed.any() or not (n_gpu == n_cpu).numpy()[fixed].all():
+        raise AssertionError(f"{tag} card vs CPU num_kept "
+                             f"{n_gpu.flatten().tolist()} vs "
+                             f"{n_cpu.flatten().tolist()} (the CPU's "
+                             f"one-ulp run: {n_own.flatten().tolist()})")
+    print(f"[{tag}] 2-frame clip card vs CPU: routed |diff| lane columns "
+          f"99th percentile {got['lane'][0]:.3g}, max {got['lane'][1]:.3g}; "
+          f"cls logits {got['cls'][0]:.3g}, {got['cls'][1]:.3g}; the CPU's "
+          f"own one-ulp spread: lane {own['lane'][0]:.3g}, "
+          f"{own['lane'][1]:.3g}, cls {own['cls'][0]:.3g}, "
+          f"{own['cls'][1]:.3g}; num_kept card {n_gpu.flatten().tolist()}, "
+          f"CPU {n_cpu.flatten().tolist()} (equal where the CPU's one-ulp "
+          f"run keeps its count: {int(fixed.sum())} of {fixed.size} "
+          f"frames) [{card}]")
 
 
 def phase_pipeline(torch, card, state_dict, quantize="w8", clips=2,
@@ -1280,6 +1539,9 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
     training = phase_train_throughput(torch, card)
     phase_trainer(torch, card)
+    chain_bf16 = phase_router_bf16(torch, card)
+    w8_bf16x = phase_w8_bf16x(torch, card)
+    bf16 = phase_bf16(torch, card)
 
     w8_ms_frame = stage_sum(w8_ms, 4, [name for name, _, _ in ms_products])
     single, multi = "openlane_config", "openlane_multiscale_config"
@@ -1322,6 +1584,24 @@ def main() -> int:
         if name == "router_chain":  # its launches in a B=1 training step
             kernels[-1]["training_launches"] = training[1]["k2_launches"]
         kernels[-1].update(ol_keys[name])
+    for name, base, numbers, source, count in (  # the bf16 paths' entries
+            ("router_chain_bf16", "router_chain",
+             dict(chain_bf16[16], library_ms=None),
+             "phnet_torch/csrc/router_chain.cu",
+             bf16["vil 16 streams"]["router_chain_bf16"]),
+            ("w8_matmul_bf16x", "w8_matmul", w8_bf16x,
+             "phnet_torch/csrc/w8_matmul.cu",
+             bf16["vil bf16 w8"]["w8_matmul"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": TPU_KERNELS[base], "launches": count,
+            "max_abs_err": numbers["max_abs_err"], "ms": numbers["ms"],
+            "plain_ms": numbers["plain_ms"], "bound_ms": numbers["bound_ms"],
+            "bound_by": numbers["bound_by"],
+            "library_ms": numbers["library_ms"]})
+    kernels[-2]["b4_ms"] = chain_bf16[4]["ms"]
+    kernels[-2]["f32_mode_ms"] = chain_bf16[16]["f32_ms"]
+    kernels[-1]["f32x_ms"] = w8_bf16x["f32x_ms"]
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

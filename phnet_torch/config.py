@@ -11,11 +11,18 @@ heads (:func:`openlane_config`, the reference's ``Router4OL``, and
 selected TPU formulations of the same function (stem packing, router
 chain layouts and kernels, stage-0 hoisting, dual-branch head stacking,
 remat policies, scan unroll, the flat-matrix AdamW) are gone, and so are
-fields of variants the port does not have yet (bf16 compute, the
-dynamic-k assigner, the loaders' settings): an unknown keyword fails when
-the config is built, and a value of a variant not yet ported (the
-prior-propagation head of :func:`openlane_propagate_config`, a training
-assigner other than Hungarian) fails in ``__post_init__``.
+fields of variants the port does not have yet (the dynamic-k assigner,
+the loaders' settings): an unknown keyword fails when the config is
+built, and a value of a variant not yet ported (the prior-propagation
+head of :func:`openlane_propagate_config`, a training assigner other than
+Hungarian, bfloat16 compute in the multi-scale head) fails in
+``__post_init__``. ``compute_dtype="bfloat16"`` runs inference in the JAX
+package's mixed precision (its headline configuration); training raises
+for it.
+
+The presets take keyword overrides of :class:`Config`'s fields, as the
+JAX package's do, and also of :class:`ModelConfig`'s, so that
+``vil100_config(compute_dtype="bfloat16")`` builds.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple, Union
 
 QUANTIZE_MODES = ("none", "int8", "w8")
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def check_quantize(mode: str) -> str:
@@ -121,6 +129,10 @@ class HeadConfig:
     separate_offset_head: bool = False
     router_reduction: int = 4
     router_blocks: int = 4
+    # the router chain's intermediates in bfloat16 (inference only). None
+    # = auto: StreamingServer turns it on above 8 streams, as the JAX
+    # server does; everywhere else None is off. True / False pin it.
+    router_chain_bf16: Optional[bool] = None
     dyn_dim_factor: int = 2
     dyn_param_reduction: int = 8
     dyn_out_expand: int = 6
@@ -178,11 +190,16 @@ class ModelConfig:
     cut_scale: float = 0.35
     crop_size: int = 0
     org_size: Optional[Tuple[int, int]] = None
+    # "float32", or "bfloat16": the JAX package's mixed precision
+    # (inference only): convolutions, dense layers and products in bf16;
+    # norm statistics, the attention softmax, the router's sigmoid and
+    # chain (unless router_chain_bf16) in f32; f32 parameters cast at use
+    compute_dtype: str = "float32"
     # inference-only quantization of the DynamicConv generator chains
     # (ops/quant.py): "w8" = int8 weights dequantized into a bf16 product
     # (the w8 matmul kernel on the card), "int8" = int8 weights and
-    # activations with int32 accumulation. Compute stays float32 outside
-    # the chains' products.
+    # activations with int32 accumulation. The chains' outputs are cast
+    # to the compute dtype; the rest of the model computes in it.
     quantize: str = "none"
     # training label assigner, run once a frame on the detached predictions
     # of both branches and every stage: the batched Jonker-Volgenant solve
@@ -198,6 +215,9 @@ class ModelConfig:
             raise ValueError(f"routing must be 'hard' or 'soft', got "
                              f"{self.routing!r}")
         check_quantize(self.quantize)
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES},"
+                             f" got {self.compute_dtype!r}")
         if self.train_assigner != "hungarian":
             raise ValueError(f"train_assigner {self.train_assigner!r} is not "
                              f"ported yet; the port trains with 'hungarian'")
@@ -208,6 +228,9 @@ class ModelConfig:
         if h.variant not in ("single", "multi"):
             raise ValueError(f"head variant must be 'single' or 'multi', got "
                              f"{h.variant!r}")
+        if h.variant == "multi" and self.compute_dtype != "float32":
+            raise ValueError("bfloat16 compute of the multi-scale head is not"
+                             " ported yet; it runs compute_dtype='float32'")
         if h.pos_encoding not in ("sine", "learned"):
             raise ValueError(f"pos_encoding must be 'sine' or 'learned', got"
                              f" {h.pos_encoding!r}")
@@ -312,7 +335,18 @@ def vil100_config(**overrides) -> Config:
         loss=LossConfig(cls_weight=2.5, reg_weight=0.5, iou_weight=2.0,
                         focal_alpha=(0.5, 0.5), style="blend_all"),
     )
-    cfg = Config(model=model, train=train)
+    return _with_overrides(Config(model=model, train=train), overrides)
+
+
+def _with_overrides(cfg: Config, overrides) -> Config:
+    """``cfg`` with keyword overrides of its own fields (``model``,
+    ``train``) and of its model's."""
+    model_keys = {f.name for f in dataclasses.fields(ModelConfig)}
+    model_kw = {k: overrides.pop(k) for k in list(overrides)
+                if k in model_keys}
+    if model_kw:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, **model_kw))
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
@@ -345,8 +379,7 @@ def openlane_config(n_offsets: int = 72, **overrides) -> Config:
                         focal_alpha=(0.1, 0.9), style="blend_cls",
                         use_lane_iou=True),
     )
-    cfg = Config(model=model, train=train)
-    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+    return _with_overrides(Config(model=model, train=train), overrides)
 
 
 def openlane_multiscale_config(n_offsets: int = 72, **overrides) -> Config:
@@ -373,8 +406,7 @@ def openlane_multiscale_config(n_offsets: int = 72, **overrides) -> Config:
                         ms_channels=(64, 32, 16)),
         routing="hard",
     )
-    cfg = dataclasses.replace(base, model=model)
-    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+    return _with_overrides(dataclasses.replace(base, model=model), overrides)
 
 
 def openlane_propagate_config(n_offsets: int = 72, **overrides) -> Config:
@@ -387,5 +419,4 @@ def openlane_propagate_config(n_offsets: int = 72, **overrides) -> Config:
         base.model,
         head=dataclasses.replace(base.model.head, propagate_priors=True),
         memory=MemoryConfig(window=1))
-    cfg = dataclasses.replace(base, model=model)
-    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+    return _with_overrides(dataclasses.replace(base, model=model), overrides)

@@ -35,12 +35,21 @@ collapsed, gen2 factored into two, out collapsed), on the multi-scale
 OL preset 13 a frame. ``"w8"`` runs them
 through the w8 matmul kernel on the card; ``"int8"`` quantizes the
 activations per row and accumulates in int32.
+
+``dtype=torch.bfloat16`` is the JAX package's ``compute_dtype="bfloat16"``
+(inference): :meth:`combine_weights` computes in float32 and casts its
+kernels and biases to bf16 at the end; the inputs are cast to bf16, the
+products and their bias adds run in bf16, and the LayerNorms are flax's
+with ``dtype=bf16`` (float32 statistics, bf16 output); the output is
+float32. In the quantized modes the combines stay as they are: a w8
+product takes the bf16 activations as they come (``(f32 product + b)``,
+then cast to bf16), an int8 one upcasts them before quantizing.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -49,6 +58,7 @@ from ..config import check_quantize
 from ..ops.quant import (int8_matmul_prequant, int8_weight_layout,
                          quantize_colwise)
 from ..ops.w8_matmul import w8_matmul
+from .mixed import cast, layer_norm, widen
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -63,11 +73,14 @@ class DynamicConv(nn.Module):
     def __init__(self, feat_size: int = 36, hidden_dim: int = 64,
                  dim_factor: int = 2, param_reduction: int = 8,
                  out_expand: int = 6, out_dim: int = 0, out_hidden: int = 0,
-                 pro_dim: int = 0, quantize: str = "none"):
+                 pro_dim: int = 0, quantize: str = "none",
+                 dtype: Optional[torch.dtype] = None):
         """``out_dim`` 0 means C and ``out_hidden`` 0 means C *
-        ``out_expand``; ``pro_dim`` 0 means ``out_dim``."""
+        ``out_expand``; ``pro_dim`` 0 means ``out_dim``; ``dtype`` is the
+        compute dtype (None: float32 compute)."""
         super().__init__()
         self.quantize = check_quantize(quantize)
+        self.dtype = dtype
         c = hidden_dim
         d = c * dim_factor
         num_params = c * d
@@ -103,9 +116,10 @@ class DynamicConv(nn.Module):
         ``{wq, sw, b}`` for a collapsed chain (the f32 product and bias
         fold, then :func:`quantize_colwise`) and ``{wq1, sw1, b1, wq2, sw2,
         b2}`` for a factored one; ``"int8"`` stores the int8 kernels
-        column-major (:func:`int8_weight_layout`). Keeps the autograd graph
-        only in train mode and unquantized (the quantized forms are
-        inference-only)."""
+        column-major (:func:`int8_weight_layout`). Unquantized entries are
+        cast to the compute dtype after the float32 combine. Keeps the
+        autograd graph only in train mode and unquantized (the quantized
+        forms are inference-only)."""
         with torch.set_grad_enabled(self.training and self.quantize == "none"
                                     and torch.is_grad_enabled()):
             return self._combine()
@@ -118,9 +132,10 @@ class DynamicConv(nn.Module):
             collapse = collapse_wins(la.in_features, la.out_features,
                                      lb.out_features)
             if self.quantize == "none":
-                out[name] = ((ka @ kb, la.bias @ kb + lb.bias) if collapse
-                             else (ka.contiguous(), la.bias, kb.contiguous(),
-                                   lb.bias))
+                out[name] = tuple(cast(t, self.dtype) for t in (
+                    (ka @ kb, la.bias @ kb + lb.bias) if collapse
+                    else (ka.contiguous(), la.bias, kb.contiguous(),
+                          lb.bias)))
             elif collapse:
                 wq, sw = quantize_colwise(ka @ kb)
                 out[name] = {"wq": wq, "sw": sw, "b": la.bias @ kb + lb.bias}
@@ -136,15 +151,19 @@ class DynamicConv(nn.Module):
         return out
 
     def _affine(self, x, pre):
+        """A chain on x in the compute dtype, its output in it too (a
+        factored quantized chain keeps its middle value in float32)."""
         if self.quantize == "none":
             if len(pre) == 2:
                 return x @ pre[0] + pre[1]
             return (x @ pre[0] + pre[1]) @ pre[2] + pre[3]
         mm = w8_matmul if self.quantize == "w8" else int8_matmul_prequant
         if "wq" in pre:
-            return mm(x, pre["wq"], pre["sw"]) + pre["b"]
-        y = mm(x, pre["wq1"], pre["sw1"]) + pre["b1"]
-        return mm(y, pre["wq2"], pre["sw2"]) + pre["b2"]
+            y = mm(x, pre["wq"], pre["sw"]) + pre["b"]
+        else:
+            y = mm(x, pre["wq1"], pre["sw1"]) + pre["b1"]
+            y = mm(y, pre["wq2"], pre["sw2"]) + pre["b2"]
+        return cast(y, self.dtype)
 
     def forward(self, pro_feat: torch.Tensor, roi_feat: torch.Tensor,
                 combined=None) -> torch.Tensor:
@@ -154,13 +173,17 @@ class DynamicConv(nn.Module):
         set by the caller (None computes it here)."""
         c, d, p = self.c, self.d, self.feat_size
         combined = combined if combined is not None else self.combine_weights()
+        pro_feat, roi_feat = cast(pro_feat, self.dtype), cast(roi_feat,
+                                                               self.dtype)
         w1 = self._affine(pro_feat, combined["gen1"])
         w1 = w1.reshape(*w1.shape[:-1], c, d)
-        feats = torch.relu(self.norm1(roi_feat @ w1))  # [B, A, P, D]
+        feats = torch.relu(layer_norm(roi_feat @ w1, self.norm1,
+                                      self.dtype))  # [B, A, P, D]
         w2 = self._affine(feats.detach().reshape(*feats.shape[:-2], p * d),
                           combined["gen2"])
         w2 = w2.reshape(*w2.shape[:-1], d, c)
-        feats = torch.relu(self.norm2(feats @ w2))  # [B, A, P, C]
+        feats = torch.relu(layer_norm(feats @ w2, self.norm2,
+                                      self.dtype))  # [B, A, P, C]
         out = self._affine(feats.reshape(*feats.shape[:-2], p * c),
                            combined["out"])
-        return self.norm3(out)
+        return widen(layer_norm(out, self.norm3, self.dtype), self.dtype)

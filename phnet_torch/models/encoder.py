@@ -9,6 +9,7 @@ import torch.nn as nn
 
 from ..config import ModelConfig
 from .fpn import FPN
+from .mixed import cast, compute_dtype, widen
 from .resnet import ResNetBackbone
 
 
@@ -16,6 +17,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
         b = cfg.backbone
         self.backbone = ResNetBackbone(b.depth, b.in_channels)
         self.neck = FPN(cfg.neck.in_channels, cfg.neck.out_channels,
@@ -28,8 +30,10 @@ class Encoder(nn.Module):
     def forward(self, frames: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """frames [N, H, W, 3] -> FPN levels, each [N, h, w, C] (a
         channels-last view of the NCHW result): strides 8/16/32 from the
-        backbone stages ``out_indices`` (1, 2, 3), 4/8/16 from (0, 1, 2)."""
-        x = frames.permute(0, 3, 1, 2)
+        backbone stages ``out_indices`` (1, 2, 3), 4/8/16 from (0, 1, 2).
+        The frames are cast to the compute dtype here and the levels come
+        out in float32, as the JAX encoder gives them."""
+        x = cast(frames.permute(0, 3, 1, 2), self.dtype)
         if torch.is_grad_enabled():
             # NCHW-contiguous for the backward: torch 2.13's CPU convolution
             # backward corrupts memory on this channels-last view at the
@@ -37,4 +41,5 @@ class Encoder(nn.Module):
             x = x.contiguous()
         feats = self.backbone(x)
         feats = [feats[i] for i in self.cfg.backbone.out_indices]
-        return tuple(o.permute(0, 2, 3, 1) for o in self.neck(feats))
+        return tuple(widen(o.permute(0, 2, 3, 1), self.dtype)
+                     for o in self.neck(feats))

@@ -7,7 +7,7 @@ upsampling (``jax.image.resize(..., "nearest")`` equals
 ``in_channels`` lists. ``out_channels`` is one width or one per level (the
 multi-scale variant's ``fpnV2``): where two neighbouring levels differ, a
 1x1 conv (``upsample[i]``) projects the coarser one down before it is
-added.
+added. It computes in its inputs' dtype (:class:`.resnet.Conv2d`).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import lecun_normal_
+from .resnet import Conv2d, lecun_normal_
 
 
 class FPN(nn.Module):
@@ -32,12 +32,11 @@ class FPN(nn.Module):
         width = ([out_channels] * n if isinstance(out_channels, int)
                  else list(out_channels))
         self.lateral = nn.ModuleList(
-            nn.Conv2d(c, w, 1) for c, w in zip(in_channels, width))
+            Conv2d(c, w, 1) for c, w in zip(in_channels, width))
         self.upsample = nn.ModuleDict(
-            {str(i - 1): nn.Conv2d(width[i], width[i - 1], 1)
+            {str(i - 1): Conv2d(width[i], width[i - 1], 1)
              for i in range(1, n) if width[i] != width[i - 1]})
-        self.fpn = nn.ModuleList(nn.Conv2d(w, w, 3, padding=1)
-                                 for w in width)
+        self.fpn = nn.ModuleList(Conv2d(w, w, 3, padding=1) for w in width)
 
     def reset_parameters(self, g: torch.Generator):
         for m in self.modules():

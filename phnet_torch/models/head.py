@@ -25,6 +25,13 @@ the next stage, and at the blend weight and the next stage's priors.
 Inference is not changed by them. In train mode the temporal decoder
 applies dropout with masks drawn from the generator :meth:`AnchorHead.forward`
 is given.
+
+With ``compute_dtype="bfloat16"`` the head computes as the JAX package's
+does: the pooling reads the float32 levels the encoder gives and stays
+float32, the router's chain too (unless ``router_chain_bf16``);
+DynamicConv, the router's MLP, the temporal decoder and the branch heads
+compute in bf16 and hand float32 on (the branch heads cast their outputs).
+The geometry, the positions and the memory stay float32.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..config import ModelConfig
 from ..device import full_f32
 from ..geometry import build_prior_embeddings
 from .dynamic_conv import DynamicConv
+from .mixed import cast, compute_dtype, widen
 from .positional import AnchorPositionalEncoding
 from .router import AdaptiveRouter
 from .transformer import TemporalDecoder
@@ -65,12 +73,16 @@ class MergedBranchHeads(nn.Module):
     """One branch's heads (cls, geometry + offsets): ``num_fc`` levels of
     (Linear + ReLU) stacked over the head dimension, then a per-head
     linear. Parameters keep the flax layout: ``fc{i}_kernel [n, din, h]``,
-    ``fc{i}_bias [n, h]``, ``out{i}_kernel [h, d_o]``, ``out{i}_bias``."""
+    ``fc{i}_bias [n, h]``, ``out{i}_kernel [h, d_o]``, ``out{i}_bias``.
+    Computes in ``dtype`` (each product rounded to it, then its bias added
+    in it) and gives float32."""
 
     FINAL_INIT_STD = 1e-3
 
-    def __init__(self, hidden: int, out_dims: Tuple[int, ...], num_fc: int):
+    def __init__(self, hidden: int, out_dims: Tuple[int, ...], num_fc: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         n = len(out_dims)
         self.num_fc, self.out_dims = num_fc, tuple(out_dims)
         for i in range(num_fc):
@@ -96,15 +108,16 @@ class MergedBranchHeads(nn.Module):
                              * self.FINAL_INIT_STD)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """x [B, A, din] -> one [B, A, d_o] tensor per head."""
-        y = x.unsqueeze(-3)  # [B, 1, A, din] against [n, din, h]
+        """x [B, A, din] -> one [B, A, d_o] float32 tensor per head."""
+        dt = self.dtype
+        y = cast(x, dt).unsqueeze(-3)  # [B, 1, A, din] against [n, din, h]
         for i in range(self.num_fc):
-            w = getattr(self, f"fc{i}_kernel")
-            b = getattr(self, f"fc{i}_bias")
+            w = cast(getattr(self, f"fc{i}_kernel"), dt)
+            b = cast(getattr(self, f"fc{i}_bias"), dt)
             y = torch.relu(y @ w + b[:, None])  # [B, n, A, h]
         return tuple(
-            y[..., i, :, :] @ getattr(self, f"out{i}_kernel")
-            + getattr(self, f"out{i}_bias")
+            widen(y[..., i, :, :] @ cast(getattr(self, f"out{i}_kernel"), dt)
+                  + cast(getattr(self, f"out{i}_bias"), dt), dt)
             for i in range(len(self.out_dims)))
 
 
@@ -234,6 +247,7 @@ class LaneHead(AnchorHead):
             h.pos_normalize)
         self.pro_embedding = nn.Parameter(
             torch.empty(h.num_priors, h.prior_feat_channels))
+        dt = compute_dtype(cfg)
         self.dyn_heads = nn.ModuleList(
             DynamicConv(feat_size=h.sample_points, hidden_dim=h.fc_hidden_dim,
                         dim_factor=h.dyn_dim_factor,
@@ -241,23 +255,24 @@ class LaneHead(AnchorHead):
                         out_expand=h.dyn_out_expand,
                         pro_dim=(h.prior_feat_channels if s == 0
                                  else h.fc_hidden_dim),
-                        quantize=cfg.quantize)
+                        quantize=cfg.quantize, dtype=dt)
             for s in range(h.refine_layers))
         self.routers = nn.ModuleList(
             AdaptiveRouter(h.num_priors, h.prior_feat_channels,
                            h.sample_points, h.router_reduction,
-                           h.router_blocks)
+                           h.router_blocks, dtype=dt,
+                           chain_bf16=bool(h.router_chain_bf16))
             for _ in range(h.refine_layers))
         d = h.fc_hidden_dim
         n_geo = 3 + spec.n_lengths
         # (cls, geometry[, offsets]) output widths
         out_dims = ((2, n_geo, spec.n_offsets) if h.separate_offset_head
                     else (2, n_geo + spec.n_offsets))
-        self.heads_fir = MergedBranchHeads(d, out_dims, h.num_fc)
-        self.heads_sec = MergedBranchHeads(2 * d, out_dims, h.num_fc)
+        self.heads_fir = MergedBranchHeads(d, out_dims, h.num_fc, dt)
+        self.heads_sec = MergedBranchHeads(2 * d, out_dims, h.num_fc, dt)
         self.temporal_decoder = TemporalDecoder(
             2 * d, h.decoder_layers, h.decoder_heads, h.decoder_ffn_dim,
-            h.decoder_dropout)
+            h.decoder_dropout, dt)
 
     def reset_parameters(self, g: torch.Generator):
         super().reset_parameters(g)

@@ -12,7 +12,9 @@ written into the ring.
 
 Both OpenLane-V heads run inference: the single-scale ``LaneHead`` with
 OL's options and the multi-scale ``MultiScaleLaneHead``, chosen by
-``cfg.head.variant``.
+``cfg.head.variant``. ``compute_dtype="bfloat16"`` runs the single-scale
+head's inference in the JAX package's mixed precision: the memory ring
+stays float32 and the routed predictions that reach lane NMS are float32.
 
 Training (:meth:`PHNet.train_forward`, the model in train mode; VIL-100's
 lane layout only, OpenLane-V training is not ported yet): BatchNorm
@@ -21,7 +23,7 @@ solve on the detached predictions of both branches and every stage; each
 stage writes the features of its own second-branch matches into the ring,
 with their gradient. ``remat_frames`` recomputes each frame's head in the
 backward; the solve and the memory write stay outside the recomputed
-region. Quantized configurations do not train.
+region. Quantized and bfloat16 configurations do not train.
 """
 
 from __future__ import annotations
@@ -241,6 +243,9 @@ class PHNet(nn.Module):
             raise ValueError(
                 f"quantize={cfg.quantize!r} is inference-only (round() has "
                 f"no useful gradient); train with quantize='none'")
+        if cfg.compute_dtype != "float32":
+            raise ValueError("bfloat16 training is not ported yet; the port "
+                             "trains with compute_dtype='float32'")
         if cfg.lane.n_lengths != 2:
             raise ValueError("OpenLane-V training (the OL lane layout, both "
                              "of its heads) is not ported yet; the port "

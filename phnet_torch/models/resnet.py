@@ -6,6 +6,13 @@ stem followed by a 3x3/s2 max pool (the stem the JAX package resolves
 the same function and are not ported. BatchNorm normalizes with running
 statistics in eval mode and with the batch's in train mode
 (``phnet_tpu/ops/batchnorm.py``).
+
+The backbone computes in its input's dtype. In bfloat16 (the JAX
+package's ``compute_dtype="bfloat16"``) a convolution takes its kernel
+rounded to bf16 and gives a bf16 output, eval BatchNorm normalizes in
+float32 from the bf16 input and the float32 running statistics and
+rounds its output to bf16 (flax's order), and the ReLUs, the max pool and
+the residual adds stay in bf16.
 """
 
 from __future__ import annotations
@@ -56,6 +63,11 @@ class BatchNorm(nn.Module):
             t.data.fill_(v)
 
     def forward(self, x):
+        if not self.training and x.dtype == torch.bfloat16:
+            mul = torch.rsqrt(self.var + self.eps) * self.weight
+            y = ((x.float() - self.mean[:, None, None]) * mul[:, None, None]
+                 + self.bias[:, None, None])
+            return y.to(x.dtype)
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, self.weight,
                                 self.bias, False, 0.0, self.eps)
@@ -72,9 +84,22 @@ class BatchNorm(nn.Module):
                 + self.bias[:, None, None])
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype (flax ``Conv(dtype=...)``): a
+    bf16 input takes the kernel rounded to bf16, rounds the product to
+    bf16, then adds the bias in bf16; any other as ``nn.Conv2d``."""
+
+    def forward(self, x):
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(x.dtype)[:, None, None]
+
+
 def _conv(cin, cout, k, stride=1, padding=0):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
-                     bias=False)
+    return Conv2d(cin, cout, k, stride=stride, padding=padding, bias=False)
 
 
 class BasicBlock(nn.Module):

@@ -6,23 +6,34 @@ The residual chain runs through :func:`phnet_torch.ops.router_chain`
 ends in ReLU and a sigmoid, so scores lie in [0.5, 1) and VIL's hard
 selection ``diff >= 0.5`` always picks the second branch, as in the
 reference.
+
+As in the JAX package, the chain computes in float32 unless
+``chain_bf16`` (inference only) selects its bf16 mode, whatever the
+compute dtype; the MLP runs in the compute dtype ``dtype`` (the chain's
+output cast to it) and the sigmoid in float32.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from ..ops.router_chain import router_chain
+from .mixed import dense, widen
 
 
 class AdaptiveRouter(nn.Module):
     def __init__(self, num_anchors: int = 240, channels: int = 64,
-                 points: int = 36, reduction: int = 4, blocks: int = 4):
+                 points: int = 36, reduction: int = 4, blocks: int = 4,
+                 dtype: Optional[torch.dtype] = None,
+                 chain_bf16: bool = False):
+        """``dtype``: the compute dtype (None: float32 compute)."""
         super().__init__()
         self.blocks = blocks
+        self.dtype, self.chain_bf16 = dtype, chain_bf16
         a, c, p = num_anchors, channels, points
         self.taps = nn.Parameter(torch.empty(a, blocks * 18))
         self.conv_bias = nn.Parameter(torch.empty(a, blocks * 2))
@@ -51,6 +62,9 @@ class AdaptiveRouter(nn.Module):
         """feats: [B, A, C, P] -> scores [B, A, 1]."""
         b, a, c, p = feats.shape
         x = router_chain(feats.reshape(b * a, c, p), self.taps,
-                         self.conv_bias, self.ln_params, self.blocks)
-        h = torch.relu(self.dense0(x.reshape(b, a, c * p)))
-        return torch.sigmoid(torch.relu(self.dense1(h)))
+                         self.conv_bias, self.ln_params, self.blocks,
+                         bf16=self.chain_bf16 and not self.training)
+        x = x.reshape(b, a, c * p).to(self.dtype or feats.dtype)
+        h = torch.relu(dense(x, self.dense0))
+        return torch.sigmoid(widen(torch.relu(dense(h, self.dense1)),
+                                   self.dtype))

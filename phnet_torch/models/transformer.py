@@ -13,6 +13,14 @@ it: on the attention weights, on each attention's residual branch, after
 the FFN's GELU and on its output. Its masks come from the
 ``torch.Generator`` the caller passes, so that a recompute seeded alike
 draws the same masks; with no generator, or in eval mode, there is none.
+
+In bfloat16 (``dtype``, the JAX package's ``compute_dtype="bfloat16"``,
+inference) the decoder's residual stream and memory are cast to bf16 and
+its dense layers compute in bf16; its LayerNorms, which have no dtype in
+the JAX package, give float32 from float32 statistics; the q.k logits come
+out of a bf16 product and are cast to float32 before the scale, the
+softmax runs in float32 and its weights are cast back to bf16 for the
+value product; the final norm reads the stream in float32.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .mixed import cast, dense, layer_norm, widen
 
 NEG_INF = -1e9
 LN_EPS = 1e-6
@@ -39,6 +49,12 @@ def dropout(x: torch.Tensor, rate: float,
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
+def widen_to(dtype: Optional[torch.dtype]) -> Optional[torch.dtype]:
+    """The output dtype of a LayerNorm without a dtype: float32 in a
+    mixed-precision model, the model's own (None) in a float32 one."""
+    return None if dtype is None else torch.float32
+
+
 def _lecun_(lin: nn.Linear, g: torch.Generator):
     lin.weight.data.copy_(torch.randn(lin.weight.shape, generator=g)
                           / math.sqrt(lin.in_features))
@@ -46,9 +62,11 @@ def _lecun_(lin: nn.Linear, g: torch.Generator):
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, self_attention: bool):
+    def __init__(self, dim: int, num_heads: int, self_attention: bool,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
+        self.dtype = dtype
         self.self_attention = self_attention
         if self_attention:
             self.qkv = nn.Linear(dim, 3 * dim)
@@ -66,31 +84,33 @@ class MultiHeadAttention(nn.Module):
         hd = self.dim // h
         b, nq, _ = q.shape
         if self.self_attention:
-            qp, kp, vp = self.qkv(q).split(self.dim, dim=-1)
+            qp, kp, vp = dense(q, self.qkv).split(self.dim, dim=-1)
         else:
-            qp = self.q(q)
-            kp, vp = self.kv(kv).split(self.dim, dim=-1)
+            qp = dense(q, self.q)
+            kp, vp = dense(kv, self.kv).split(self.dim, dim=-1)
         nk = kp.shape[1]
         qp = qp.reshape(b, nq, h, hd).transpose(1, 2)  # [B, H, Nq, hd]
         kp = kp.reshape(b, nk, h, hd).transpose(1, 2)
         vp = vp.reshape(b, nk, h, hd).transpose(1, 2)
-        logits = (qp @ kp.transpose(-1, -2)) / math.sqrt(float(hd))
+        logits = widen(qp @ kp.transpose(-1, -2), self.dtype) / math.sqrt(
+            float(hd))
         if key_mask is not None:
             logits = logits.masked_fill(~key_mask[:, None, None, :], NEG_INF)
         weights = dropout(torch.softmax(logits, dim=-1), rate, gen)
-        out = weights @ vp  # [B, H, Nq, hd]
-        return self.out(out.transpose(1, 2).reshape(b, nq, self.dim))
+        out = weights.to(vp.dtype) @ vp  # [B, H, Nq, hd]
+        return dense(out.transpose(1, 2).reshape(b, nq, self.dim), self.out)
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int = 8, ffn_dim: int = 256,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.rate = dropout
+        self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.self_attn = MultiHeadAttention(dim, num_heads, True)
+        self.self_attn = MultiHeadAttention(dim, num_heads, True, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.cross_attn = MultiHeadAttention(dim, num_heads, False)
+        self.cross_attn = MultiHeadAttention(dim, num_heads, False, dtype)
         self.norm3 = nn.LayerNorm(dim, eps=LN_EPS)
         self.ffn1 = nn.Linear(dim, ffn_dim)
         self.ffn2 = nn.Linear(ffn_dim, dim)
@@ -100,12 +120,17 @@ class DecoderLayer(nn.Module):
         """``gen``: the dropout masks' generator (train mode only)."""
         p = self.rate
         gen = gen if self.training else None
-        sa = self.self_attn(self.norm1(tgt), None, None, p, gen)
+
+        def norm(x, ln):  # flax LayerNorm() has no dtype: float32 out
+            return cast(layer_norm(x, ln, widen_to(self.dtype)), self.dtype)
+
+        sa = self.self_attn(norm(tgt, self.norm1), None, None, p, gen)
         tgt = tgt + dropout(sa, p, gen)
-        ca = self.cross_attn(self.norm2(tgt), memory, memory_mask, p, gen)
+        ca = self.cross_attn(norm(tgt, self.norm2), memory, memory_mask, p,
+                             gen)
         tgt = tgt + dropout(ca, p, gen)
-        y = F.gelu(self.ffn1(self.norm3(tgt)), approximate="tanh")
-        return tgt + dropout(self.ffn2(dropout(y, p, gen)), p, gen)
+        y = F.gelu(dense(norm(tgt, self.norm3), self.ffn1), approximate="tanh")
+        return tgt + dropout(dense(dropout(y, p, gen), self.ffn2), p, gen)
 
 
 class TemporalDecoder(nn.Module):
@@ -113,10 +138,12 @@ class TemporalDecoder(nn.Module):
     whose memory bank is empty."""
 
     def __init__(self, dim: int, num_layers: int = 2, num_heads: int = 8,
-                 ffn_dim: int = 256, dropout: float = 0.0):
+                 ffn_dim: int = 256, dropout: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.layers = nn.ModuleList(
-            DecoderLayer(dim, num_heads, ffn_dim, dropout)
+            DecoderLayer(dim, num_heads, ffn_dim, dropout, dtype)
             for _ in range(num_layers))
         self.final_norm = nn.LayerNorm(dim, eps=LN_EPS)
 
@@ -132,9 +159,9 @@ class TemporalDecoder(nn.Module):
                 gen: Optional[torch.Generator] = None):
         """tgt [B, A, D]; memory [B, M, D]; memory_mask [B, M] bool;
         ``gen``: the dropout masks' generator (train mode only)."""
-        x = tgt
+        x, memory = cast(tgt, self.dtype), cast(memory, self.dtype)
         for layer in self.layers:
             x = layer(x, memory, memory_mask, gen)
-        x = self.final_norm(x)
+        x = layer_norm(x, self.final_norm, widen_to(self.dtype))
         has_memory = memory_mask.any(dim=-1)
         return torch.where(has_memory[:, None, None], x, tgt)

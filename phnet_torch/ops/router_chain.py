@@ -5,6 +5,12 @@ fast-variance form, ``_conv3x3``, and the kernel ``fused_router_blocks``):
 LN0, then ``blocks`` times depthwise 3x3 (zero padding, per-anchor taps
 and bias) -> LN -> ReLU -> 3x3 -> LN -> + residual -> ReLU.
 
+``bf16=True`` is the chain with bfloat16 intermediates that the JAX
+package serves above 8 streams (``AdaptiveRouter(chain_bf16=True)``,
+``phnet_tpu/models/router.py``): the same function, rounded to bf16 at
+the points :func:`router_chain_plain` lists, with a bf16 output. The
+kernel runs it as a second instance of the same CUDA kernel.
+
 :func:`router_chain` is the wrapper: CUDA tensors run the kernel
 ``csrc/router_chain.cu``, CPU tensors run :func:`router_chain_plain`.
 :func:`router_plan` chooses how the kernel groups the planes. Where a
@@ -59,16 +65,24 @@ def cta_threads(c: int, p: int) -> int:
     return -(-(c // STRIP) * p // 32) * 32
 
 
-def smem_bytes(c: int, p: int, group: int, blocks: int) -> int:
+def smem_bytes(c: int, p: int, group: int, blocks: int,
+               bf16: bool = False) -> int:
     """Dynamic shared memory of a CTA, as the launcher sizes it: the
     LayerNorm partials (two halves), the anchor's taps and biases (12
     floats a conv), and two zero-halo planes (x and the block's middle
     value) a stream, each strip of STRIP rows followed by a gap that keeps
-    warps off bank conflicts."""
+    warps off bank conflicts; the planes hold float32, or bf16 in the
+    bf16 mode (2 bytes an element, the gap then a multiple of 64
+    elements, 16-byte aligned)."""
     warps = cta_threads(c, p) // 32
+    head = 4 * (2 * warps * group * 2 + blocks * 24)
+    if bf16:
+        pad = (p - STRIP * (p + 2)) % 64
+        plane = (c + 2) * (p + 2) + (c // STRIP + 1) * pad
+        return head + 2 * 2 * group * (-(-plane // 8) * 8)
     pad = (p - STRIP * (p + 2)) % 32
     plane = (c + 2) * (p + 2) + (c // STRIP + 1) * pad
-    return 4 * (2 * warps * group * 2 + blocks * 24 + 2 * group * plane)
+    return head + 4 * 2 * group * plane
 
 
 def plan_planes(plan: RouterPlan, n_planes: int) -> torch.Tensor:
@@ -109,33 +123,50 @@ def conv3x3_depthwise(x: torch.Tensor, taps: torch.Tensor,
     return y + bias[:, None, None]
 
 
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest bf16 (ties to even), kept in float32."""
+    return x.to(torch.bfloat16).float()
+
+
 def router_chain_plain(x: torch.Tensor, taps: torch.Tensor,
                        bias: torch.Tensor, ln_params: torch.Tensor,
-                       blocks: int) -> torch.Tensor:
-    """The plain PyTorch chain. x: [N, C, P] with N a multiple of A (plane
-    n belongs to anchor n % A); taps: [A, blocks*18]; bias: [A, blocks*2];
-    ln_params: [2 + 4*blocks, C, P]."""
+                       blocks: int, bf16: bool = False) -> torch.Tensor:
+    """The plain PyTorch chain. x: [N, C, P] float32 with N a multiple of A
+    (plane n belongs to anchor n % A); taps: [A, blocks*18]; bias: [A,
+    blocks*2]; ln_params: [2 + 4*blocks, C, P].
+
+    ``bf16=True`` rounds to bf16 where the JAX chain casts with
+    ``cdtype = bfloat16``, and computes in float32 between those points:
+    the taps and the conv biases; LN0's output (from the float32 input);
+    each 3x3's output (its nine products summed in float32 in tap order,
+    then the bias); each LayerNorm's output (float32 statistics, fast
+    variance); the residual sum ``y + x`` (the ReLUs act on bf16 values and
+    round nothing). The output is bf16. The JAX program rounds the 3x3 in
+    bf16 after every product and sum where the compiler keeps that
+    precision (XLA on the CPU does); the kernel and this version round
+    each 3x3 once."""
     reps = x.shape[0] // taps.shape[0]
-    taps_n = taps.repeat(reps, 1)
-    bias_n = bias.repeat(reps, 1)
-    x = layer_norm_cp(x, ln_params[0], ln_params[1])
+    rnd = _round_bf16 if bf16 else (lambda t: t)
+    taps_n = rnd(taps.repeat(reps, 1))
+    bias_n = rnd(bias.repeat(reps, 1))
+    x = rnd(layer_norm_cp(x, ln_params[0], ln_params[1]))
     for blk in range(blocks):
         o = 2 + 4 * blk
-        y = conv3x3_depthwise(x, taps_n[:, 18 * blk:18 * blk + 9],
-                              bias_n[:, 2 * blk])
-        y = torch.relu(layer_norm_cp(y, ln_params[o], ln_params[o + 1]))
-        y = conv3x3_depthwise(y, taps_n[:, 18 * blk + 9:18 * blk + 18],
-                              bias_n[:, 2 * blk + 1])
-        y = layer_norm_cp(y, ln_params[o + 2], ln_params[o + 3])
-        x = torch.relu(y + x)
-    return x
+        y = rnd(conv3x3_depthwise(x, taps_n[:, 18 * blk:18 * blk + 9],
+                                  bias_n[:, 2 * blk]))
+        y = torch.relu(rnd(layer_norm_cp(y, ln_params[o], ln_params[o + 1])))
+        y = rnd(conv3x3_depthwise(y, taps_n[:, 18 * blk + 9:18 * blk + 18],
+                                  bias_n[:, 2 * blk + 1]))
+        y = rnd(layer_norm_cp(y, ln_params[o + 2], ln_params[o + 3]))
+        x = torch.relu(rnd(y + x))
+    return x.to(torch.bfloat16) if bf16 else x
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("router_chain").router_chain_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, i]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, i, i]
     fn.restype = i
     return fn
 
@@ -145,8 +176,9 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _chain_cuda(x, taps, bias, ln_params, blocks: int):
-    """Launch ``csrc/router_chain.cu`` on the current stream."""
+def _chain_cuda(x, taps, bias, ln_params, blocks: int, bf16: bool = False):
+    """Launch ``csrc/router_chain.cu`` on the current stream (its bf16
+    instance with ``bf16``)."""
     n, c, p = x.shape
     a = taps.shape[0]
     shapes = {"x": (x, (n, c, p)), "taps": (taps, (a, blocks * 18)),
@@ -164,27 +196,32 @@ def _chain_cuda(x, taps, bias, ln_params, blocks: int):
         raise ValueError(f"router_chain kernel: {n} planes is not a "
                          f"multiple of {a} anchors")
     plan = router_plan(n, a, _sm_count(x.device), c, p)
-    out = torch.empty_like(x)
+    out = torch.empty_like(x, dtype=torch.bfloat16 if bf16 else x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _launcher()(x.data_ptr(), taps.data_ptr(), bias.data_ptr(),
                           ln_params.data_ptr(), out.data_ptr(), n, a, c, p,
-                          blocks, stream, plan.group)
+                          blocks, stream, plan.group, int(bf16))
     if err != 0:
         raise RuntimeError(
             f"router_chain kernel launch failed for [{c}, {p}] planes (the "
             f"kernel takes C a multiple of {STRIP}, C * P <= 4096): CUDA "
             f"error {err}")
-    router_chain.launches += 1
+    if bf16:
+        router_chain.launches_bf16 += 1
+    else:
+        router_chain.launches += 1
     return out
 
 
-def _chain(x, taps, bias, ln_params, blocks: int) -> torch.Tensor:
+def _chain(x, taps, bias, ln_params, blocks: int,
+           bf16: bool = False) -> torch.Tensor:
     if x.is_cuda:
         return _chain_cuda(x.contiguous(), taps.contiguous(),
-                           bias.contiguous(), ln_params.contiguous(), blocks)
+                           bias.contiguous(), ln_params.contiguous(), blocks,
+                           bf16)
     if x.device.type == "cpu":
-        return router_chain_plain(x, taps, bias, ln_params, blocks)
+        return router_chain_plain(x, taps, bias, ln_params, blocks, bf16)
     raise ValueError(f"router_chain: unsupported device {x.device}")
 
 
@@ -214,15 +251,21 @@ class RouterChainFn(torch.autograd.Function):
 
 
 def router_chain(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
-                 ln_params: torch.Tensor, blocks: int) -> torch.Tensor:
-    """The router chain on x [N, C, P] (see :func:`router_chain_plain`).
-    CUDA tensors run the kernel, CPU tensors the plain version; with
-    autograd on and an input that wants a gradient, through
+                 ln_params: torch.Tensor, blocks: int,
+                 bf16: bool = False) -> torch.Tensor:
+    """The router chain on x [N, C, P] float32 (see
+    :func:`router_chain_plain`); ``bf16`` selects the chain with bf16
+    intermediates and output (inference only: it carries no gradient).
+    CUDA tensors run the kernel, CPU tensors the plain version; in float32
+    with autograd on and an input that wants a gradient, through
     :class:`RouterChainFn`."""
-    if torch.is_grad_enabled() and any(
+    if not bf16 and torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, taps, bias, ln_params)):
         return RouterChainFn.apply(x, taps, bias, ln_params, blocks)
-    return _chain(x, taps, bias, ln_params, blocks)
+    return _chain(x, taps, bias, ln_params, blocks, bf16)
 
 
-router_chain.launches = 0  # kernel launches, counted where the kernel launches
+# kernel launches, counted where the kernel launches: the float32 instance
+# and the bf16 one
+router_chain.launches = 0
+router_chain.launches_bf16 = 0

@@ -6,7 +6,10 @@ chunks of ``chunk`` frames through :class:`phnet_torch.models.PHNet`, the
 last chunk padded by repeating the last frame, with the temporal memory
 carried across chunks (``reset_memory_per_chunk=True`` resets it at every
 chunk, the reference's OL behaviour). The DynamicConv combines (quantized
-when the config asks for it) are built once per weight set.
+when the config asks for it, in the compute dtype) are built once per
+weight set. The router chain's mode is the config's
+(``router_chain_bf16``, None meaning off): the JAX pipeline does not
+resolve it by batch as the server does.
 """
 
 from __future__ import annotations

@@ -10,10 +10,17 @@ unbounded (VIL-100), ``DEFAULT_WINDOW`` frames; every preset of
 persistent device frame buffer receives only the frames that arrived this
 tick; a stream that skips a tick keeps its pre-step memory rows, and the
 ring slot written this tick becomes a hole (masked) for it.
+
+Above :data:`CHAIN_BF16_ABOVE` streams the router chain runs in its bf16
+mode, as the JAX server's does (``router_chain_bf16=None`` resolves to
+``max_streams > 8``; True or False in the config wins), in float32 compute
+as in bfloat16. The frames go up in float32 and the encoder casts them to
+the compute dtype.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from typing import Dict, List, Mapping, Tuple
@@ -27,6 +34,20 @@ from .geometry import Lane, decode_kept_rows
 from .models.phnet import MemoryState, PHNet, init_memory
 
 DEFAULT_WINDOW = 64  # ring frames when the config's window is unbounded
+CHAIN_BF16_ABOVE = 8  # streams past which the router chain goes bf16
+
+
+def resolve_chain_bf16(cfg: Config, max_streams: int) -> Config:
+    """``cfg`` with ``head.router_chain_bf16`` resolved: None (auto) is
+    ``max_streams > CHAIN_BF16_ABOVE``, as ``phnet_tpu/serving.py``
+    resolves it; a pinned value stays."""
+    head = cfg.model.head
+    if head.router_chain_bf16 is not None:
+        return cfg
+    head = dataclasses.replace(
+        head, router_chain_bf16=max_streams > CHAIN_BF16_ABOVE)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, head=head))
 
 
 class StreamingServer:
@@ -34,13 +55,14 @@ class StreamingServer:
 
     ``state_dict``: the port's weights (for example
     ``phnet_torch.convert.convert`` of a JAX checkpoint). ``device=None``
-    serves on the card."""
+    serves on the card. ``self.cfg`` is ``cfg`` with the router chain's
+    mode resolved (:func:`resolve_chain_bf16`)."""
 
     def __init__(self, cfg: Config, state_dict: Mapping[str, torch.Tensor],
                  max_streams: int = 4, memory_window: int = None,
                  device=None):
         self.device = resolve_device(device)
-        self.cfg = cfg
+        self.cfg = cfg = resolve_chain_bf16(cfg, max_streams)
         self.mcfg = mcfg = cfg.model
         self.model = PHNet(mcfg, device=self.device)
         self.max_streams = max_streams

@@ -70,7 +70,11 @@ def train(cfg: Config, dataset, loader, workdir: str,
           verbose: bool = True, device=None
           ) -> Tuple[TrainState, List[float]]:
     """Train ``cfg`` on ``loader``'s batches of ``dataset`` into
-    ``workdir``. Returns the final state and each epoch's mean loss."""
+    ``workdir``. Returns the final state and each epoch's mean loss.
+    float32 only: ``compute_dtype="bfloat16"`` raises ValueError."""
+    if cfg.model.compute_dtype != "float32":
+        raise ValueError("bfloat16 training is not ported yet; the port "
+                         "trains with compute_dtype='float32'")
     tcfg = cfg.train
     epochs = epochs or tcfg.epochs
     dev = resolve_device(device)

@@ -444,3 +444,80 @@ def test_train_step_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(metrics["loss"].item())
+
+
+@pytest.mark.parametrize("streams,a,c,p", [
+    (1, 240, 64, 36), (3, 240, 64, 36), (4, 240, 64, 36), (9, 240, 64, 36),
+    (16, 240, 64, 36),              # the path's shape, above 8 streams too
+    (4, 32, 16, 12),                # C and P at run time
+])
+def test_router_chain_bf16_kernel_close_to_plain(cuda, streams, a, c, p):
+    """The chain's bf16 mode against ``router_chain_plain(bf16=True)``: a
+    bf16 output, within 2**-6 of max |plain| with under 1% of the elements
+    differing (``chip_smoke.py::phase_router_bf16``); a second call gives
+    the same bits; one launch a call, counted apart from the float32
+    instance's."""
+    rng = np.random.default_rng(streams + 100)
+    blocks = 4
+    f32 = lambda *sh: torch.from_numpy(  # noqa: E731
+        rng.normal(size=sh).astype(np.float32)).to(cuda)
+    x, taps = f32(streams * a, c, p), f32(a, blocks * 18) * 0.2
+    bias, lnp = f32(a, blocks * 2) * 0.1, f32(2 + 4 * blocks, c, p) * 0.1
+    lnp[[0] + [2 + 4 * b + o for b in range(blocks) for o in (0, 2)]] += 1.0
+    before = (trc.router_chain.launches, trc.router_chain.launches_bf16)
+    got = trc.router_chain(x, taps, bias, lnp, blocks, bf16=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert (trc.router_chain.launches,
+            trc.router_chain.launches_bf16) == (before[0], before[1] + 1)
+    ref = trc.router_chain_plain(x, taps, bias, lnp, blocks, bf16=True)
+    d = (got.float() - ref.float()).abs()
+    assert d.max().item() <= ref.float().abs().max().item() / 64
+    assert (d > 0).float().mean().item() < 0.01
+    assert torch.equal(trc.router_chain(x, taps, bias, lnp, blocks,
+                                        bf16=True), got)
+
+
+@pytest.mark.parametrize("mode", ["none", "w8"])
+def test_bf16_end_to_end_card_matches_cpu(mode):
+    """The full-width VIL model in bf16, a 2-frame clip on the card and on
+    the CPU (``chip_smoke.py::phase_end_to_end``: routed predictions
+    within twice the CPU's own one-ulp spread, keep counts equal where
+    that spread leaves them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import chip_smoke
+
+    card = torch.cuda.get_device_name(0)
+    weights = chip_smoke.seeded_state_dict(
+        torch, chip_smoke.preset_config("vil100_config"))
+    chip_smoke.phase_end_to_end(torch, card, weights, mode,
+                                compute_dtype="bfloat16")
+
+
+def test_server_above_8_streams_runs_bf16_chain(cuda):
+    """A full-width f32 server of 9 streams resolves the router chain to
+    its bf16 mode, as the JAX server does: one tick launches it three
+    times and the float32 instance never; the chain-pinned clip holds card
+    against CPU (``chip_smoke.py::phase_end_to_end``)."""
+    import chip_smoke
+    from phnet_torch.config import vil100_config
+    from phnet_torch.serving import StreamingServer
+
+    cfg = vil100_config()
+    weights = chip_smoke.seeded_state_dict(torch, cfg)
+    server = StreamingServer(cfg, weights, max_streams=9)
+    assert server.mcfg.head.router_chain_bf16 is True
+    for _ in range(9):
+        server.attach()
+    rng = np.random.default_rng(4)
+    frames = {s: rng.normal(size=(cfg.model.img_h, cfg.model.img_w, 3))
+              .astype(np.float32) for s in range(9)}
+    before = (trc.router_chain.launches, trc.router_chain.launches_bf16)
+    kept, valid, _ = server.step_async(frames)
+    torch.cuda.synchronize()
+    assert (trc.router_chain.launches,
+            trc.router_chain.launches_bf16) == (before[0], before[1] + 3)
+    assert torch.isfinite(kept).all() and valid.any()
+    chip_smoke.phase_end_to_end(torch, torch.cuda.get_device_name(0),
+                                weights, chain_bf16=True)

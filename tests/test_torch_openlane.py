@@ -64,13 +64,15 @@ def setup():
     return jc, tc, variables, tp.torch_model(tc, variables)
 
 
-@pytest.mark.parametrize("preset", ["openlane_config",
+@pytest.mark.parametrize("preset", ["vil100_config", "openlane_config",
                                     "openlane_multiscale_config"])
 def test_preset_matches_jax(preset):
     """Every field the port's preset has equals the JAX preset's, but for
     the multi-scale preset's ``head.dyn_param_reduction``: the port's head
     reads it, so the preset states the 4 that the JAX package's head fixes
-    in code (``phnet_tpu/models/head_ms.py``) beside its unread 8."""
+    in code (``phnet_tpu/models/head_ms.py``) beside its unread 8. Among
+    them the compute dtype and the router chain's bf16 flag (None: the
+    server decides)."""
     # the port's value where the JAX preset's field is not the one that runs
     read_here = ({"model.head.dyn_param_reduction": 4}
                  if preset == "openlane_multiscale_config" else {})
@@ -90,6 +92,8 @@ def test_preset_matches_jax(preset):
 
     got, ref = getattr(tcfg, preset)(), getattr(jcfg, preset)()
     compare(got.model, ref.model, "model")
+    assert (got.model.compute_dtype, got.model.head.router_chain_bf16) == (
+        ref.model.compute_dtype, ref.model.head.router_chain_bf16)
     compare(got.train.loss, ref.train.loss, "train.loss")
     assert got.model.head.attn_dim == ref.model.head.attn_dim
 

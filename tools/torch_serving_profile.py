@@ -3,11 +3,14 @@
 
     python tools/torch_serving_profile.py [--preset {vil,openlane,openlane_ms}]
         [--streams 4] [--ticks 8] [--quantize {none,w8,int8}]
+        [--compute-dtype {float32,bfloat16}]
 
 Serves a full-width model (``--preset``: ``vil100_config``,
 ``openlane_config`` or ``openlane_multiscale_config``; the seeded weights
 of ``chip_smoke.py``; ``--quantize`` picks the generator chains'
-numerics: float32, the w8 matmul kernel, or int8 GEMMs) through
+numerics: float32, the w8 matmul kernel, or int8 GEMMs;
+``--compute-dtype bfloat16`` the JAX package's mixed precision; above 8
+streams the server runs the router chain's bf16 mode) through
 ``phnet_torch.serving.StreamingServer``, warms up, times ``--ticks``
 ticks without the profiler (each tick fetches its lanes, so it waits for
 the card), then traces as many with ``torch.profiler`` (CPU + CUDA).
@@ -17,8 +20,8 @@ operation), frames/s, the peak device memory, the device busy share
 (kernel time over the wall time without the profiler), kernel launches
 per tick, the device time by kernel group and the top kernels, and one
 JSON summary line.
-Float32: the flags are left at torch's defaults, as a user leaves them,
-and the model turns TF32 off itself (``phnet_torch.device.full_f32``).
+The TF32 flags are left at torch's defaults, as a user leaves them, and
+the model turns TF32 off itself (``phnet_torch.device.full_f32``).
 Needs a CUDA card.
 """
 
@@ -69,6 +72,8 @@ def main() -> int:
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--quantize", choices=("none", "w8", "int8"),
                     default="none")
+    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_serving_profile: no CUDA device", file=sys.stderr)
@@ -82,7 +87,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
-    cfg = chip_smoke.preset_config(PRESETS[args.preset], args.quantize)
+    cfg = chip_smoke.preset_config(PRESETS[args.preset], args.quantize,
+                                   args.compute_dtype)
     server = StreamingServer(cfg, chip_smoke.seeded_state_dict(torch, cfg),
                              max_streams=args.streams)
     sids = [server.attach() for _ in range(args.streams)]
@@ -131,7 +137,9 @@ def main() -> int:
     p50, p99 = np.percentile(walls, 50), np.percentile(walls, 99)
     fps = args.streams * args.ticks / plain_wall_ms * 1e3
     print(f"{args.ticks} ticks of {args.streams} streams, preset "
-          f"{args.preset}, quantize={args.quantize}: wall {per_tick:.3f} "
+          f"{args.preset}, quantize={args.quantize}, {args.compute_dtype}, "
+          f"router chain bf16 {server.mcfg.head.router_chain_bf16}: wall "
+          f"{per_tick:.3f} "
           f"ms/tick (p50 {p50:.3f}, p99 {p99:.3f}; {wall_ms / args.ticks:.3f}"
           f" under the profiler), {fps:.2f} frames/s, peak device memory "
           f"{peak_mib:.1f} MiB, device kernel time "
@@ -147,6 +155,8 @@ def main() -> int:
     print(json.dumps({
         "card": card, "preset": args.preset, "streams": args.streams,
         "ticks": args.ticks, "quantize": args.quantize,
+        "compute_dtype": args.compute_dtype,
+        "router_chain_bf16": server.mcfg.head.router_chain_bf16,
         "wall_ms_per_tick": per_tick, "wall_ms_p50": p50,
         "wall_ms_p99": p99, "frames_per_s": fps, "peak_mib": peak_mib,
         "profiled_wall_ms_per_tick": wall_ms / args.ticks,
