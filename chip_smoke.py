@@ -75,10 +75,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     4, dropout 0.1, 2 warm-up and 5 timed steps on a fixed batch: step
     wall p50, clip-frames/s, device ms (CUDA events), peak memory, K2
     launches a step (3 a frame forward, again in the remat backward: the
-    counter must read exactly that, and K1 and K3 none), then one step
-    under ``torch.profiler`` for launches a step, busy share and the
-    Hungarian solve's and K2's device ms; the loss finite and lower at
-    step 5 than at step 1;
+    counter must read exactly that, and K1 and K3 none), then at B = 1
+    one step under ``torch.profiler`` for launches a step, busy share and
+    the Hungarian solve's and K2's device ms (``tools/torch_train_profile
+    .py`` profiles B = 4); the loss finite and lower at the last step
+    than at the first;
 17. the trainer: ``phnet_torch.train.trainer.train`` for one epoch of 2
     steps on 2 synthetic 4-frame videos into a temporary directory, then
     resumed for a second epoch: both epochs' losses finite, and the resume
@@ -97,13 +98,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     float32 at 16 streams, where the server turns the chain's bf16 mode on
     (the counters must show it three times a tick, the float32 mode never),
     held card against CPU with the mode pinned; ``openlane_config`` served
-    in bf16 at 4 streams.
+    in bf16 at 4 streams;
+21. bf16 training, card against CPU (``vil100_config(compute_dtype=
+    "bfloat16")``, the JAX trainers' default; full width, one clip of 4
+    frames, cuDNN's TF32 flag on): the card's step and the CPU's steps on
+    two one-ulp copies of the frames with the assignment pinned to the
+    CPU's matches, gradients per module within twice the CPU's one-ulp
+    spread, the loss too, the free matches differing no more than the
+    CPU's copies do, the step without remat giving the same loss; K2's
+    bf16 mode under autograd 3 times a frame, again in the remat
+    recompute, its float32 instance never; then the same with
+    ``router_train_chain_f32`` (one one-ulp copy; the float32 instance
+    launches, the bf16 mode never);
+22. OpenLane-V training (``openlane_config``, ``Router4OL``), card
+    against CPU: phase 15 in float32, phase 21 in bf16;
+23. training throughput, phase 16's protocol: VIL bf16 at B = 1 and 4
+    (``bench.py``'s shapes; B = 1 profiled), OpenLane-V in float32 and
+    bf16 at B = 1 (1 warm-up and 3 timed steps, no profile);
+24. ``python -m phnet_torch.train.openlane --synthetic``'s code path
+    (bf16; its parsed flags into its ``run``, with a resumable checkpoint
+    every epoch) for one epoch, then resumed for a second. Phase 18 also holds K2's bf16 mode at one stream (G = 1, the
+    plan of a B = 1 training step).
 
-Float32 outside the quantized products and the bf16 phases 18-20. The
+Float32 outside the quantized products and the bf16 phases 18-24. The
 model turns TF32 off itself (``phnet_torch.device.full_f32``); the script
 also turns it off for the plain versions it holds the kernels against.
 The line before the last holds one JSON object per kernel (K2's with its
-launches in a training step beside its serving launches; each kernel's
+launches in a training step beside its serving launches, its bf16 mode's
+in a bf16 training step; each kernel's
 launches and times on the OpenLane-V paths under ``openlane_*`` keys; K2's
 bf16 mode and K3 at bf16 x as entries of their own); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -111,6 +133,7 @@ Without a card, or without the package beside it, the script exits
 non-zero and prints no result.
 """
 
+import contextlib
 import dataclasses
 import gc
 import glob
@@ -495,8 +518,9 @@ def phase_router(torch, card):
 
 
 def phase_router_bf16(torch, card):
-    """K2's bf16 mode (the chain the server runs above 8 streams) against
-    ``router_chain_plain(bf16=True)`` at 4 and 16 streams: bf16 out, two
+    """K2's bf16 mode (the chain the server runs above 8 streams and a bf16
+    model trains) against ``router_chain_plain(bf16=True)`` at 1, 4 and 16
+    streams (plans G = 1, 4, 4): bf16 out, two
     calls bit-equal, max |diff| within 2**-6 of max |plain| and under 1% of
     the elements differing (both round at the same points, but their
     LayerNorm sums run in other orders, so a rare element lands one bf16
@@ -518,7 +542,7 @@ def phase_router_bf16(torch, card):
         ).manual_seed(2)).to(dev))
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-    for streams in (4, 16):
+    for streams in (1, 4, 16):
         g = torch.Generator().manual_seed(20 + streams)
         feats = torch.randn((streams, a, c, p), generator=g).to(dev)
         x = feats.reshape(streams * a, c, p)
@@ -1187,14 +1211,27 @@ TRAIN_LEAVES = (  # gradient leaves held card against CPU, one a layer
 PROFILE_RANGES = ("hungarian_assign", "router_chain_backward")
 
 
-def train_config(dropout, **train):
-    from phnet_torch.config import vil100_config
+def train_config(dropout, preset="vil100_config", compute_dtype="float32",
+                 chain_f32=False, remat=True, **train):
+    """The full-width training configuration of ``preset`` with decoder
+    dropout ``dropout``, the compute dtype, ``router_train_chain_f32``,
+    remat and ``train`` overrides."""
+    from phnet_torch import config as tconfig
 
-    cfg = vil100_config()
-    head = dataclasses.replace(cfg.model.head, decoder_dropout=dropout)
+    cfg = getattr(tconfig, preset)()
+    head = dataclasses.replace(cfg.model.head, decoder_dropout=dropout,
+                               router_train_chain_f32=chain_f32)
     return dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, head=head),
+        cfg, model=dataclasses.replace(cfg.model, head=head,
+                                       compute_dtype=compute_dtype,
+                                       remat_frames=remat),
         train=dataclasses.replace(cfg.train, **train))
+
+
+def chain_bf16_in_training(cfg) -> bool:
+    """Whether ``cfg`` trains K2 in its bf16 mode (the JAX rule)."""
+    return (cfg.model.compute_dtype == "bfloat16"
+            and not cfg.model.head.router_train_chain_f32)
 
 
 def synthetic_batch(torch, cfg, clips, frames_per_clip, seed=1):
@@ -1212,43 +1249,94 @@ def synthetic_batch(torch, cfg, clips, frames_per_clip, seed=1):
             torch.from_numpy(batch["labels"]))
 
 
-def grad_run(torch, cfg, frames, labels, device):
+@contextlib.contextmanager
+def pinned_assignment(torch, matched):
+    """The training forward with its Hungarian assignment replaced by
+    ``matched`` ([2, T, S, B, L]: first branch, second branch), frame by
+    frame: a bf16 step's gradients compared across devices must not hinge
+    on a match that rounding noise flips."""
+    import phnet_torch.models.phnet as tph
+
+    frame = iter(range(matched.shape[1]))
+    real = tph.train_assign
+
+    def fixed(cfg, preds, *_):
+        i = next(frame)
+        return torch.cat([matched[0, i], matched[1, i]]).to(preds.device)
+
+    tph.train_assign = fixed
+    try:
+        yield
+    finally:
+        tph.train_assign = real
+
+
+def grad_run(torch, cfg, frames, labels, device, pin=None, leaves=None):
     """One training step from the seeded weights on ``device``: forward,
-    criterion, backward (inside ``full_f32``), update. Returns the loss,
-    the gradient norm, the matches and the sampled gradient leaves."""
+    criterion, backward (inside ``full_f32``), update; with ``pin``, the
+    assignment pinned to those matches. Returns the loss, the gradient
+    norm, the matches, the gradient leaves (``leaves``, default every
+    one) and K2's launches in the step (float32 instance, bf16 mode)."""
     from phnet_torch.device import full_f32
     from phnet_torch.losses import LaneCriterion
+    from phnet_torch.ops import router_chain as trc
     from phnet_torch.train.state import create_train_state
 
     state = create_train_state(cfg, 100, device, seed=0)
     crit = LaneCriterion(cfg.model, cfg.train.loss)
     frames, labels = frames.to(device), labels.to(device)
-    with full_f32():
+    trc.router_chain.launches = trc.router_chain.launches_bf16 = 0
+    with full_f32(), (pinned_assignment(torch, pin) if pin is not None
+                      else contextlib.nullcontext()):
         outs, _ = state.model.train_forward(frames, labels)
         loss, _ = crit(outs, labels)
         loss.backward()
         norm = state.optimizer.step()
+    k2 = (trc.router_chain.launches, trc.router_chain.launches_bf16)
     grads = dict(state.model.named_parameters())
     return {"loss": loss.item(), "grad_norm": norm.item(),
             "matched": torch.stack([outs.matched_fir, outs.matched_sec]
                                    ).cpu(),
-            "grads": {n: grads[n].grad.cpu() for n in TRAIN_LEAVES}}
+            "grads": {n: grads[n].grad.float().cpu()
+                      for n in (leaves or grads)}, "k2": k2}
 
 
-def phase_train_parity(torch, card, frames_per_clip=4):
-    """One training step card against CPU at full width, B=1, T=4; the
-    bounds are the CPU's own spread under a 1e-6 relative perturbation of
-    the frames, four times over, and no tighter than 2e-5 relative for the
-    loss, 1e-4 for the gradient norm and 2e-3 of each leaf's largest
-    entry (float32 sums in other orders, atomics on the card)."""
-    cfg = train_config(0.0)
+def free_matches(torch, cfg, frames, labels, device):
+    """The matches of a training forward from the seeded weights, with
+    autograd on as in a step (the encoder then takes its input contiguous)
+    but no backward: [2, T, S, B, L]."""
+    from phnet_torch.device import full_f32
+    from phnet_torch.train.state import create_train_state
+
+    model = create_train_state(cfg, 100, device, seed=0).model
+    with full_f32():
+        outs, _ = model.train_forward(frames.to(device), labels.to(device))
+    return torch.stack([outs.matched_fir, outs.matched_sec]).cpu()
+
+
+def phase_train_parity(torch, card, preset="vil100_config",
+                       frames_per_clip=4):
+    """One float32 training step of ``preset`` card against CPU at full
+    width, B=1, T=4; the bounds are the CPU's own spread under a 1e-6
+    relative perturbation of the frames, four times over, and no tighter
+    than 2e-5 relative for the loss, 1e-4 for the gradient norm and 2e-3
+    of each leaf's largest entry (float32 sums in other orders, atomics on
+    the card). K2's float32 instance launches 3 times a frame, again in
+    the remat recompute, its bf16 mode never. Returns the card's K2
+    launches."""
+    cfg = train_config(0.0, preset)
     frames, labels = synthetic_batch(torch, cfg, 1, frames_per_clip)
     pert = frames * (1.0 + 1e-6 * torch.from_numpy(np.random.default_rng(
         7).normal(size=tuple(frames.shape)).astype(np.float32)))
     t0 = time.perf_counter()
-    card_run = grad_run(torch, cfg, frames, labels, "cuda")
-    cpu = grad_run(torch, cfg, frames, labels, "cpu")
-    cpu_p = grad_run(torch, cfg, pert, labels, "cpu")
+    card_run = grad_run(torch, cfg, frames, labels, "cuda",
+                        leaves=TRAIN_LEAVES)
+    cpu = grad_run(torch, cfg, frames, labels, "cpu", leaves=TRAIN_LEAVES)
+    cpu_p = grad_run(torch, cfg, pert, labels, "cpu", leaves=TRAIN_LEAVES)
+    want_k2 = (2 * cfg.model.head.refine_layers * frames_per_clip, 0)
+    if card_run["k2"] != want_k2:
+        raise AssertionError(f"training {preset}: K2 launches (float32, "
+                             f"bf16) {card_run['k2']}, want {want_k2}")
     report = []
     for key, floor in (("loss", 2e-5), ("grad_norm", 1e-4)):
         err, own = abs(card_run[key] - cpu[key]), abs(cpu_p[key] - cpu[key])
@@ -1277,13 +1365,121 @@ def phase_train_parity(torch, card, frames_per_clip=4):
         raise AssertionError(f"training card vs CPU: {flips} Hungarian "
                              f"matches differ, the perturbed CPU run "
                              f"{own_flips}")
-    print(f"[train card vs CPU] full width, 1 clip x {frames_per_clip} "
-          f"frames, dropout 0, cuDNN TF32 flag "
+    print(f"[train card vs CPU] {preset}, full width, 1 clip x "
+          f"{frames_per_clip} frames, dropout 0, cuDNN TF32 flag "
           f"{torch.backends.cudnn.allow_tf32} around the step: "
           + "; ".join(report) + f"; {len(TRAIN_LEAVES)} gradient leaves, "
           f"worst at {worst:.3f} of its bound; matches differing {flips} of "
-          f"{card_run['matched'].numel()} (perturbed CPU {own_flips}); "
+          f"{card_run['matched'].numel()} (perturbed CPU {own_flips}); K2 "
+          f"launches (float32, bf16) {card_run['k2']}; "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return card_run["k2"]
+
+
+def one_ulp(torch, x, seed):
+    """x with each element moved by -1, 0 or +1 bf16 ulp (relative)."""
+    k = np.random.default_rng(seed).integers(-1, 2, tuple(x.shape))
+    return x * (1.0 + torch.from_numpy(k.astype(np.float32)) * 2.0 ** -8)
+
+
+def leaf_group(name):
+    """The module a gradient leaf belongs to, for the bf16 bounds."""
+    parts = name.split(".")
+    if parts[0] == "encoder" or parts[1] in (
+            "routers", "dyn_heads", "temporal_decoder", "heads_fir",
+            "heads_sec"):
+        return ".".join(parts[:2])
+    return "head (anchors, embeddings)"
+
+
+def phase_train_parity_bf16(torch, card, preset="vil100_config",
+                            chain_f32=False, frames_per_clip=4,
+                            ulp_seeds=(5, 6)):
+    """One bf16 training step of ``preset`` (``router_train_chain_f32``
+    with ``chain_f32``) card against CPU at full width, B=1, T=4, by the
+    one-ulp method of the CPU parity tests (``tests/torch_train_parity``):
+    the card's step and the CPU's steps on copies of the frames moved by
+    one bf16 ulp run with the assignment pinned to the CPU's matches. Per
+    group of gradient leaves (a module) the largest relative gap (|card -
+    CPU| max over a leaf's largest entry) within twice the CPU's own
+    one-ulp spread; the routers' conv biases, zero up to rounding, under
+    5e-2 of their taps' largest gradient on the card; the loss within
+    twice its spread; the matches of a free forward on the card differing
+    from the CPU's in no more slots than the CPU's own one-ulp copies do.
+    K2 launches 3 times a frame, again in the remat recompute, in its
+    bf16 mode (its float32 instance with ``chain_f32``). The card's step
+    without remat must give the same loss bits and gradients within the
+    same bounds (the recompute reproduces the forward: K2 and cuBLAS
+    deterministic). Returns the card's K2 launches."""
+    tag = f"{preset}{' router_train_chain_f32' if chain_f32 else ''}"
+    cfg = train_config(0.0, preset, compute_dtype="bfloat16",
+                       chain_f32=chain_f32)
+    frames, labels = synthetic_batch(torch, cfg, 1, frames_per_clip)
+    copies = [one_ulp(torch, frames, s) for s in ulp_seeds]
+    t0 = time.perf_counter()
+    cpu = grad_run(torch, cfg, frames, labels, "cpu")
+    pin = cpu["matched"]
+    cpu_ulp = [grad_run(torch, cfg, f, labels, "cpu", pin=pin)
+               for f in copies]
+    own_flips = max(int((free_matches(torch, cfg, f, labels, "cpu")
+                         != pin).sum()) for f in copies)
+    flips = int((free_matches(torch, cfg, frames, labels, "cuda")
+                 != pin).sum())
+    card_run = grad_run(torch, cfg, frames, labels, "cuda", pin=pin)
+    no_remat = grad_run(torch, train_config(
+        0.0, preset, compute_dtype="bfloat16", chain_f32=chain_f32,
+        remat=False), frames, labels, "cuda", pin=pin)
+    steps = 2 * cfg.model.head.refine_layers * frames_per_clip
+    want_k2 = (0, steps) if chain_bf16_in_training(cfg) else (steps, 0)
+    if card_run["k2"] != want_k2:
+        raise AssertionError(f"training {tag} bf16: K2 launches (float32, "
+                             f"bf16) {card_run['k2']}, want {want_k2}")
+    if flips > own_flips:
+        raise AssertionError(f"training {tag} bf16: {flips} Hungarian "
+                             f"matches differ card vs CPU, the CPU's one-ulp "
+                             f"copies {own_flips}")
+    own_loss = max(abs(u["loss"] - cpu["loss"]) for u in cpu_ulp)
+    if not abs(card_run["loss"] - cpu["loss"]) <= 2 * own_loss:
+        raise AssertionError(f"training {tag} bf16 loss: card "
+                             f"{card_run['loss']} vs CPU {cpu['loss']}, the "
+                             f"CPU's one-ulp spread {own_loss}")
+    if no_remat["loss"] != card_run["loss"]:
+        raise AssertionError(f"training {tag} bf16: loss without remat "
+                             f"{no_remat['loss']} != {card_run['loss']}")
+    groups = {}
+    for name, ref in cpu["grads"].items():
+        scale = ref.abs().max().item()
+        if name.endswith("conv_bias"):
+            taps = card_run["grads"][name[:-len("conv_bias")] + "taps"]
+            if not (card_run["grads"][name].abs().max().item()
+                    <= 5e-2 * taps.abs().max().item()):
+                raise AssertionError(f"training {tag} bf16: {name} not "
+                                     f"zero up to rounding on the card")
+            continue
+        gap = (card_run["grads"][name] - ref).abs().max().item() / scale
+        own = max((u["grads"][name] - ref).abs().max().item()
+                  for u in cpu_ulp) / scale
+        remat = (no_remat["grads"][name]
+                 - card_run["grads"][name]).abs().max().item() / scale
+        g = groups.setdefault(leaf_group(name), [0.0, 0.0, 0.0])
+        g[0], g[1], g[2] = max(g[0], gap), max(g[1], own), max(g[2], remat)
+    for name, (gap, own, remat) in groups.items():
+        if not (gap <= 2 * own and remat <= 2 * own):
+            raise AssertionError(f"training {tag} bf16 gradients of {name}: "
+                                 f"card vs CPU {gap:.4g}, remat on vs off "
+                                 f"{remat:.4g} of the largest entry, the "
+                                 f"CPU's one-ulp spread {own:.4g}")
+    print(f"[train bf16 card vs CPU] {tag}, full width, 1 clip x "
+          f"{frames_per_clip} frames, dropout 0, assignment pinned to the "
+          f"CPU's: loss {card_run['loss']:.6f} vs {cpu['loss']:.6f} (CPU's "
+          f"one-ulp spread {own_loss:.3g}); per group the largest relative "
+          f"gap card vs CPU / remat on vs off / CPU's one-ulp spread: "
+          + ", ".join(f"{n} {g[0]:.3g} / {g[2]:.3g} / {g[1]:.3g}"
+                      for n, g in sorted(groups.items()))
+          + f"; free matches differing {flips} of {pin.numel()} (the CPU's "
+          f"one-ulp copies {own_flips}); K2 launches (float32, bf16) "
+          f"{card_run['k2']}; {time.perf_counter() - t0:.1f} s [{card}]")
+    return card_run["k2"]
 
 
 def range_kernels(event):
@@ -1356,9 +1552,12 @@ def profile_steps(torch, fn, steps=1, group_of=None):
 
 
 def phase_train_throughput(torch, card, batches=(1, 4), frames_per_clip=16,
-                           warmup=2, timed=5):
-    """Training steps on a fixed batch at full width. Returns the numbers
-    of each batch size."""
+                           warmup=2, timed=5, preset="vil100_config",
+                           compute_dtype="float32", profiled=(1,)):
+    """Training steps of ``preset`` in ``compute_dtype`` on a fixed batch at
+    full width; one step more under ``torch.profiler`` at the batch sizes
+    in ``profiled`` (processing a step's trace takes 70-110 s). Returns
+    the numbers of each batch size."""
     from phnet_torch.losses import LaneCriterion
     from phnet_torch.ops import nms as tnms
     from phnet_torch.ops import router_chain as trc
@@ -1366,9 +1565,11 @@ def phase_train_throughput(torch, card, batches=(1, 4), frames_per_clip=16,
     from phnet_torch.train.state import create_train_state
     from phnet_torch.train.step import make_train_step, step_seed
 
-    cfg = train_config(0.1)
+    cfg = train_config(0.1, preset, compute_dtype=compute_dtype)
+    tag = f"train {preset} {compute_dtype}"
     crit = LaneCriterion(cfg.model, cfg.train.loss)
     step = make_train_step(crit, cfg.train.accum_steps)
+    bf16_chain = chain_bf16_in_training(cfg)
     out = {}
     for b in batches:
         gc.collect()
@@ -1381,7 +1582,7 @@ def phase_train_throughput(torch, card, batches=(1, 4), frames_per_clip=16,
         losses, walls, dev, k2 = [], [], [], []
         for i in range(warmup + timed):
             tnms.lane_nms.launches = 0
-            trc.router_chain.launches = 0
+            trc.router_chain.launches = trc.router_chain.launches_bf16 = 0
             tw8.w8_matmul.launches = 0
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1393,44 +1594,52 @@ def phase_train_throughput(torch, card, batches=(1, 4), frames_per_clip=16,
             losses.append(metrics["loss"].item())  # waits for the card
             walls.append(time.perf_counter() - t0)
             dev.append(start.elapsed_time(end))
-            k2.append(trc.router_chain.launches)
+            k2.append((trc.router_chain.launches,
+                       trc.router_chain.launches_bf16))
             if tnms.lane_nms.launches or tw8.w8_matmul.launches:
                 raise AssertionError("a training step launched K1 or K3")
         peak = torch.cuda.max_memory_allocated()
-        want_k2 = 2 * cfg.model.head.refine_layers * frames_per_clip
+        n = 2 * cfg.model.head.refine_layers * frames_per_clip
+        want_k2 = (0, n) if bf16_chain else (n, 0)
         if any(k != want_k2 for k in k2):
-            raise AssertionError(f"router_chain launches a step {k2}, want "
-                                 f"{want_k2} (3 a frame, forward and remat)")
-        if not (np.isfinite(losses).all() and losses[4] < losses[0]):
-            raise AssertionError(f"training losses {losses}: not finite or "
-                                 f"not falling from step 1 to step 5")
-        t_prof = time.perf_counter()
-        prof = profile_steps(torch, lambda: step(
-            state, frames, labels, step_seed(cfg.train.seed, state.step)))
-        t_prof = time.perf_counter() - t_prof
+            raise AssertionError(f"{tag}: router_chain launches a step "
+                                 f"(float32, bf16) {k2}, want {want_k2} (3 "
+                                 f"a frame, forward and remat)")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{tag} losses {losses}: not finite or not "
+                                 f"falling from the first step to the last")
         w = np.array(walls[warmup:]) * 1e3
         p50 = float(np.percentile(w, 50))
         d50 = float(np.percentile(dev[warmup:], 50))
-        jv, k2b = (prof["ranges"]["hungarian_assign"],
-                   prof["ranges"]["router_chain_backward"])
-        k2_ms = sum(v for k, v in prof["by_name"].items()
-                    if "router_chain" in k.lower())
         out[b] = {"step_p50_ms": p50, "clip_frames_per_s":
                   b * frames_per_clip / p50 * 1e3, "device_ms_p50": d50,
-                  "peak_mib": peak / 2 ** 20, "k2_launches": k2[-1],
-                  "losses": losses, **{k: prof[k] for k in (
-                      "device_ms", "launches", "profiled_wall_ms")},
-                  "jv": jv, "k2_ms": k2_ms, "k2_backward": k2b}
-        print(f"[train B={b}] {b} x {frames_per_clip} frames at "
+                  "peak_mib": peak / 2 ** 20,
+                  "k2_launches": k2[-1][1 if bf16_chain else 0],
+                  "losses": losses}
+        print(f"[{tag} B={b}] {b} x {frames_per_clip} frames at "
               f"{cfg.model.img_h}x{cfg.model.img_w}, dropout 0.1, "
               f"{warmup} + {timed} steps: step wall p50 {p50:.1f} ms "
               f"(all {', '.join(f'{x:.1f}' for x in w)}), "
               f"{out[b]['clip_frames_per_s']:.2f} clip-frames/s, CUDA-event "
               f"ms a step p50 {d50:.1f}, peak device memory "
               f"{peak / 2 ** 20:.1f} MiB; router_chain launches a step "
-              f"{k2[-1]}; losses {', '.join(f'{x:.4f}' for x in losses)} "
-              f"[{card}]")
-        print(f"[train B={b}] one profiled step: {prof['launches']:.0f} "
+              f"(float32, bf16) {k2[-1]}; losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)} [{card}]")
+        if b not in profiled:
+            del state, frames, labels
+            continue
+        t_prof = time.perf_counter()
+        prof = profile_steps(torch, lambda: step(
+            state, frames, labels, step_seed(cfg.train.seed, state.step)))
+        t_prof = time.perf_counter() - t_prof
+        jv, k2b = (prof["ranges"]["hungarian_assign"],
+                   prof["ranges"]["router_chain_backward"])
+        k2_ms = sum(v for k, v in prof["by_name"].items()
+                    if "router_chain" in k.lower())
+        out[b].update({k: prof[k] for k in ("device_ms", "launches",
+                                            "profiled_wall_ms")},
+                      jv=jv, k2_ms=k2_ms, k2_backward=k2b)
+        print(f"[{tag} B={b}] one profiled step: {prof['launches']:.0f} "
               f"kernel launches, device kernel time {prof['device_ms']:.1f} "
               f"ms (busy {prof['device_ms'] / p50:.3f} of the unprofiled "
               f"p50), Hungarian solve {jv['ms']:.2f} ms in "
@@ -1494,6 +1703,43 @@ def phase_trainer(torch, card, frames_per_clip=4):
           f"[{card}]")
 
 
+def phase_trainer_openlane(torch, card, frames_per_clip=4):
+    """``python -m phnet_torch.train.openlane``'s code path (its parsed
+    flags into ``run``: ``Router4OL`` in bf16, its default) for one epoch
+    of 2 synthetic 4-frame videos, then resumed for a second. The preset
+    saves a resumable checkpoint every ``epoch_per_test`` = 5 epochs; the
+    run takes one every epoch."""
+    from phnet_torch.config import openlane_config
+    from phnet_torch.ops import router_chain as trc
+    from phnet_torch.train import openlane as cli
+
+    cfg = openlane_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epoch_per_test=1))
+    t0 = time.perf_counter()
+    trc.router_chain.launches = trc.router_chain.launches_bf16 = 0
+    with tempfile.TemporaryDirectory() as workdir:
+        argv = ["--synthetic", "--frames", str(frames_per_clip),
+                "--synthetic-videos", "2", "--batch", "1", "--workdir",
+                workdir]
+        first = cli.run(cfg, cli.parse_args(argv + ["--epochs", "1"]))
+        second = cli.run(cfg, cli.parse_args(argv + ["--epochs", "2",
+                                                     "--resume"]))
+        files = sorted(os.listdir(workdir))
+    k2 = (trc.router_chain.launches, trc.router_chain.launches_bf16)
+    if not (len(first) == len(second) == 1
+            and np.isfinite(first + second).all()):
+        raise AssertionError(f"OL trainer epoch losses {first} then "
+                             f"{second}")
+    if "epoch_2.pt" not in files or not k2[1] or k2[0]:
+        raise AssertionError(f"OL trainer: files {files}, K2 launches "
+                             f"(float32, bf16) {k2}")
+    print(f"[trainer openlane] phnet_torch.train.openlane's run, "
+          f"--synthetic (Router4OL, bf16): epoch 1 loss {first[0]:.4f}, "
+          f"resumed epoch 2 loss {second[0]:.4f}; files {files}; K2 launches "
+          f"(float32, bf16) {k2}; {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1542,6 +1788,22 @@ def main() -> int:
     chain_bf16 = phase_router_bf16(torch, card)
     w8_bf16x = phase_w8_bf16x(torch, card)
     bf16 = phase_bf16(torch, card)
+    torch.backends.cudnn.allow_tf32 = True  # a user's default
+    try:
+        phase_train_parity_bf16(torch, card)
+        phase_train_parity_bf16(torch, card, chain_f32=True,
+                                ulp_seeds=(5,))
+        phase_train_parity(torch, card, "openlane_config")
+        phase_train_parity_bf16(torch, card, "openlane_config")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    training_bf16 = phase_train_throughput(torch, card,
+                                           compute_dtype="bfloat16")
+    training_ol = {dt: phase_train_throughput(
+        torch, card, batches=(1,), warmup=1, timed=3,
+        preset="openlane_config", compute_dtype=dt, profiled=())
+        for dt in ("float32", "bfloat16")}
+    phase_trainer_openlane(torch, card)
 
     w8_ms_frame = stage_sum(w8_ms, 4, [name for name, _, _ in ms_products])
     single, multi = "openlane_config", "openlane_multiscale_config"
@@ -1583,6 +1845,8 @@ def main() -> int:
             "library_ms": numbers["library_ms"]})
         if name == "router_chain":  # its launches in a B=1 training step
             kernels[-1]["training_launches"] = training[1]["k2_launches"]
+            kernels[-1]["openlane_training_launches"] = (
+                training_ol["float32"][1]["k2_launches"])
         kernels[-1].update(ol_keys[name])
     for name, base, numbers, source, count in (  # the bf16 paths' entries
             ("router_chain_bf16", "router_chain",
@@ -1600,6 +1864,13 @@ def main() -> int:
             "bound_by": numbers["bound_by"],
             "library_ms": numbers["library_ms"]})
     kernels[-2]["b4_ms"] = chain_bf16[4]["ms"]
+    kernels[-2]["b1_ms"] = chain_bf16[1]["ms"]
+    kernels[-2]["b1_plain_ms"] = chain_bf16[1]["plain_ms"]
+    kernels[-2]["b1_bound_ms"] = chain_bf16[1]["bound_ms"]
+    # its launches in a bf16 B=1 training step (VIL; OpenLane-V)
+    kernels[-2]["training_launches"] = training_bf16[1]["k2_launches"]
+    kernels[-2]["openlane_training_launches"] = (
+        training_ol["bfloat16"][1]["k2_launches"])
     kernels[-2]["f32_mode_ms"] = chain_bf16[16]["f32_ms"]
     kernels[-1]["f32x_ms"] = w8_bf16x["f32x_ms"]
     print(f"[done] {time.perf_counter() - t0:.1f} s")

@@ -2,23 +2,25 @@
 
 The dataclasses keep the JAX package's field names and defaults for what
 the port runs, so one set of keyword arguments builds the same model in
-both packages: VIL-100 inference and float32 VIL-100 training
-(:class:`TrainConfig`, :class:`LossConfig`, ``HeadConfig.decoder_dropout``,
-``ModelConfig.train_assigner`` with the Hungarian assigner only, and
-``ModelConfig.remat_frames``), and OpenLane-V inference with both of its
+both packages: VIL-100 and OpenLane-V inference with both of OpenLane's
 heads (:func:`openlane_config`, the reference's ``Router4OL``, and
-:func:`openlane_multiscale_config`, ``Router4OLV2``). Fields that only
-selected TPU formulations of the same function (stem packing, router
-chain layouts and kernels, stage-0 hoisting, dual-branch head stacking,
-remat policies, scan unroll, the flat-matrix AdamW) are gone, and so are
-fields of variants the port does not have yet (the dynamic-k assigner,
-the loaders' settings): an unknown keyword fails when the config is
-built, and a value of a variant not yet ported (the prior-propagation
-head of :func:`openlane_propagate_config`, a training assigner other than
+:func:`openlane_multiscale_config`, ``Router4OLV2``), and training of
+VIL-100 and of ``Router4OL`` (:class:`TrainConfig`, :class:`LossConfig`,
+``HeadConfig.decoder_dropout`` and ``router_train_chain_f32``,
+``ModelConfig.train_assigner`` with the Hungarian assigner only, and
+``ModelConfig.remat_frames``). Fields that only selected TPU formulations
+of the same function (stem packing, router chain layouts and kernels,
+stage-0 hoisting, dual-branch head stacking, remat policies, scan unroll,
+the flat-matrix AdamW) are gone, and so are fields of variants the port
+does not have yet (the dynamic-k assigner, the loaders' settings): an
+unknown keyword fails when the config is built, and a value of a variant
+not yet ported (the prior-propagation head of
+:func:`openlane_propagate_config`, a training assigner other than
 Hungarian, bfloat16 compute in the multi-scale head) fails in
-``__post_init__``. ``compute_dtype="bfloat16"`` runs inference in the JAX
-package's mixed precision (its headline configuration); training raises
-for it.
+``__post_init__``; training the multi-scale head raises in the model.
+``compute_dtype="bfloat16"`` is the JAX package's mixed precision (its
+headline configuration and its trainers' default), in inference and in
+training.
 
 The presets take keyword overrides of :class:`Config`'s fields, as the
 JAX package's do, and also of :class:`ModelConfig`'s, so that
@@ -129,10 +131,14 @@ class HeadConfig:
     separate_offset_head: bool = False
     router_reduction: int = 4
     router_blocks: int = 4
-    # the router chain's intermediates in bfloat16 (inference only). None
+    # the router chain's intermediates in bfloat16 at inference. None
     # = auto: StreamingServer turns it on above 8 streams, as the JAX
     # server does; everywhere else None is off. True / False pin it.
     router_chain_bf16: Optional[bool] = None
+    # training only: the chain in float32 even when compute_dtype is
+    # bfloat16 (by default a bf16 model trains its chain in bf16, as the
+    # JAX package does)
+    router_train_chain_f32: bool = False
     dyn_dim_factor: int = 2
     dyn_param_reduction: int = 8
     dyn_out_expand: int = 6
@@ -183,17 +189,20 @@ class ModelConfig:
     test: TestParams = field(default_factory=TestParams)
     max_lanes: int = 8
     routing: str = "hard"  # "hard" (VIL) | "soft" (OL)
-    # original-image geometry of the datasets, read by the pipeline's
-    # emission (not by the model): VIL crops the top cut_scale * H of each
-    # image, OL the top crop_size rows of its org_size (H, W) images and
-    # emits in that cropped frame shifted back by crop_size rows
+    # original-image geometry of the datasets (not read by the model): VIL
+    # crops the top cut_scale * H of each image (the pipeline emits with a
+    # clip's own cut, 0 where it has none), OL the top crop_size rows of
+    # its org_size (H, W) images and the pipeline emits in that cropped
+    # frame shifted back by crop_size rows
     cut_scale: float = 0.35
     crop_size: int = 0
     org_size: Optional[Tuple[int, int]] = None
-    # "float32", or "bfloat16": the JAX package's mixed precision
-    # (inference only): convolutions, dense layers and products in bf16;
-    # norm statistics, the attention softmax, the router's sigmoid and
-    # chain (unless router_chain_bf16) in f32; f32 parameters cast at use
+    # "float32", or "bfloat16": the JAX package's mixed precision:
+    # convolutions, dense layers and products in bf16; norm statistics,
+    # the attention softmax and the router's sigmoid in f32; the router's
+    # chain in f32 at inference (unless router_chain_bf16) and in bf16 in
+    # training (unless head.router_train_chain_f32); f32 parameters cast
+    # at use
     compute_dtype: str = "float32"
     # inference-only quantization of the DynamicConv generator chains
     # (ops/quant.py): "w8" = int8 weights dequantized into a bf16 product

@@ -5,7 +5,9 @@ textured road that drift smoothly over the clip, with fixed-shape labels
 from the port's label encoder. The lane geometry comes from the same
 seeded draws in the same order, so a clip's labels equal the JAX
 package's for the same seed; the pixels differ (nearest-neighbour noise
-and a numpy stripe raster instead of OpenCV's).
+and a numpy stripe raster instead of OpenCV's). The label layout is the
+``LaneSpec``'s: VIL's two length fields, or OpenLane-V's one (with its
+``max_lanes`` 4 and 72 offsets, as ``train_ol.py --synthetic`` draws).
 """
 
 from __future__ import annotations

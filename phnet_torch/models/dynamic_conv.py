@@ -37,7 +37,8 @@ through the w8 matmul kernel on the card; ``"int8"`` quantizes the
 activations per row and accumulates in int32.
 
 ``dtype=torch.bfloat16`` is the JAX package's ``compute_dtype="bfloat16"``
-(inference): :meth:`combine_weights` computes in float32 and casts its
+(inference and training): :meth:`combine_weights` computes in float32
+(keeping its graph in train mode) and casts its
 kernels and biases to bf16 at the end; the inputs are cast to bf16, the
 products and their bias adds run in bf16, and the LayerNorms are flax's
 with ``dtype=bf16`` (float32 statistics, bf16 output); the output is

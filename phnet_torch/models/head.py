@@ -30,8 +30,11 @@ With ``compute_dtype="bfloat16"`` the head computes as the JAX package's
 does: the pooling reads the float32 levels the encoder gives and stays
 float32, the router's chain too (unless ``router_chain_bf16``);
 DynamicConv, the router's MLP, the temporal decoder and the branch heads
-compute in bf16 and hand float32 on (the branch heads cast their outputs).
-The geometry, the positions and the memory stay float32.
+compute in bf16 and hand float32 on (the branch heads cast their outputs,
+where ``phnet_tpu/models/head.py:155,393`` casts them, so that the
+assignment and the criterion see float32 in training). The geometry, the
+positions and the memory stay float32. In training the router's chain
+runs in bf16 unless ``router_train_chain_f32`` (``models/router.py``).
 """
 
 from __future__ import annotations
@@ -261,7 +264,8 @@ class LaneHead(AnchorHead):
             AdaptiveRouter(h.num_priors, h.prior_feat_channels,
                            h.sample_points, h.router_reduction,
                            h.router_blocks, dtype=dt,
-                           chain_bf16=bool(h.router_chain_bf16))
+                           chain_bf16=bool(h.router_chain_bf16),
+                           train_chain_f32=h.router_train_chain_f32)
             for _ in range(h.refine_layers))
         d = h.fc_hidden_dim
         n_geo = 3 + spec.n_lengths

@@ -1,5 +1,5 @@
 """The JAX package's mixed precision, ``compute_dtype="bfloat16"``, as
-the port's modules run it (inference only).
+the port's modules run it, in inference and in training.
 
 flax modules built with ``dtype=bfloat16`` keep float32 parameters and
 cast them at use: a ``Dense`` casts its input, kernel and bias to bf16,
@@ -7,7 +7,9 @@ rounds the product to bf16 and adds the bias in bf16; a ``LayerNorm``
 computes its statistics in float32 with the fast variance
 ``max(E[x^2] - E[x]^2, 0)``, normalizes in float32 and rounds its output
 to its ``dtype`` (float32 where it has none). The helpers below do the
-same from a module's float32 parameters.
+same from a module's float32 parameters; under autograd each cast
+rounds the cotangent back, as JAX's transpose of a cast does, and the
+parameters' gradients stay float32 (flax's ``param_dtype``).
 
 A module's compute dtype is ``torch.bfloat16``, or None for the float32
 model: that model casts nothing and keeps its own formulation, so that it

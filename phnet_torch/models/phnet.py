@@ -16,14 +16,18 @@ OL's options and the multi-scale ``MultiScaleLaneHead``, chosen by
 head's inference in the JAX package's mixed precision: the memory ring
 stays float32 and the routed predictions that reach lane NMS are float32.
 
-Training (:meth:`PHNet.train_forward`, the model in train mode; VIL-100's
-lane layout only, OpenLane-V training is not ported yet): BatchNorm
-on batch statistics, decoder dropout, and per frame one batched Hungarian
-solve on the detached predictions of both branches and every stage; each
-stage writes the features of its own second-branch matches into the ring,
-with their gradient. ``remat_frames`` recomputes each frame's head in the
-backward; the solve and the memory write stay outside the recomputed
-region. Quantized and bfloat16 configurations do not train.
+Training (:meth:`PHNet.train_forward`, the model in train mode; VIL-100
+and OpenLane-V's single head ``Router4OL``, in float32 and bfloat16; the
+multi-scale head does not train yet): BatchNorm on batch statistics,
+decoder dropout, and per frame one batched Hungarian solve on the
+detached predictions of both branches and every stage; each stage writes
+the features of its own second-branch matches (the labels' valid column
+marks the slots) into the ring, with their gradient, at ``t % window``
+(VIL's ring holds the clip, OL's wraps every 5 frames). ``remat_frames``
+recomputes each frame's head in the backward; the solve and the memory
+write stay outside the recomputed region. In bfloat16 the head's outputs
+reach the assignment and the criterion in float32, and the ring stays
+float32. Quantized configurations do not train.
 """
 
 from __future__ import annotations
@@ -124,6 +128,15 @@ def write_memory(mem: MemoryState, attn_feat: torch.Tensor,
     values[:, :, w_pos] = frame_vals
     mask[:, w_pos] = frame_mask
     return MemoryState(values=values, mask=mask, t=mem.t + 1)
+
+
+def check_trainable(cfg: ModelConfig):
+    """ValueError for a configuration the port cannot train yet: the
+    multi-scale head (``Router4OLV2``)."""
+    if cfg.head.variant == "multi":
+        raise ValueError("training the multi-scale OpenLane-V head "
+                         "(Router4OLV2) is not ported yet; the port trains "
+                         "VIL-100 and the single head (openlane_config)")
 
 
 class PHNet(nn.Module):
@@ -243,13 +256,7 @@ class PHNet(nn.Module):
             raise ValueError(
                 f"quantize={cfg.quantize!r} is inference-only (round() has "
                 f"no useful gradient); train with quantize='none'")
-        if cfg.compute_dtype != "float32":
-            raise ValueError("bfloat16 training is not ported yet; the port "
-                             "trains with compute_dtype='float32'")
-        if cfg.lane.n_lengths != 2:
-            raise ValueError("OpenLane-V training (the OL lane layout, both "
-                             "of its heads) is not ported yet; the port "
-                             "trains VIL-100")
+        check_trainable(cfg)
         feats = self.encode(frames)
         t, b = feats[0].shape[:2]
         s, window = cfg.head.refine_layers, (

@@ -5,14 +5,16 @@ stem followed by a 3x3/s2 max pool (the stem the JAX package resolves
 ``"auto"`` to off the TPU). The packed stems of the JAX package compute
 the same function and are not ported. BatchNorm normalizes with running
 statistics in eval mode and with the batch's in train mode
-(``phnet_tpu/ops/batchnorm.py``).
+(:mod:`phnet_torch.ops.batchnorm`, the port of
+``phnet_tpu/ops/batchnorm.py``).
 
 The backbone computes in its input's dtype. In bfloat16 (the JAX
 package's ``compute_dtype="bfloat16"``) a convolution takes its kernel
-rounded to bf16 and gives a bf16 output, eval BatchNorm normalizes in
-float32 from the bf16 input and the float32 running statistics and
+rounded to bf16 and gives a bf16 output, BatchNorm normalizes in float32
+from the bf16 input and the float32 running or batch statistics and
 rounds its output to bf16 (flax's order), and the ReLUs, the max pool and
-the residual adds stay in bf16.
+the residual adds stay in bf16. Training keeps the running statistics in
+float32.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.batchnorm import bn_train_normalize
 
 STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}  # BasicBlock depths
 
@@ -42,9 +46,11 @@ class BatchNorm(nn.Module):
     ``max(0, E[x^2] - E[x]^2)``, ``y = (x - mean) * (rsqrt(var + eps) *
     scale) + bias``, and the running statistics updated in place as
     ``r = 0.9 r + 0.1 batch`` with the biased batch variance (which
-    ``F.batch_norm`` does not do: it keeps the unbiased one). The gradient
-    is autograd's of that formula; the JAX package's custom VJP is its
-    closed form."""
+    ``F.batch_norm`` does not do: it keeps the unbiased one), through
+    :func:`~phnet_torch.ops.batchnorm.bn_train_normalize` and its
+    closed-form backward, as the JAX package's custom VJP. A bf16 input
+    normalizes in float32 and rounds its output to bf16 (flax's order), in
+    both modes."""
 
     momentum = 0.9
 
@@ -71,17 +77,13 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, self.weight,
                                 self.bias, False, 0.0, self.eps)
-        n = x.numel() // x.shape[1]
-        mean = x.sum(dim=(0, 2, 3)) / n
-        var = torch.clamp((x * x).sum(dim=(0, 2, 3)) / n - mean * mean,
-                          min=0.0)
+        y, mean, var = bn_train_normalize(x, self.weight, self.bias,
+                                          self.eps)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean)
             self.var.copy_(m * self.var + (1 - m) * var)
-        r = torch.rsqrt(var + self.eps)
-        return ((x - mean[:, None, None]) * (r * self.weight)[:, None, None]
-                + self.bias[:, None, None])
+        return y.to(x.dtype)
 
 
 class Conv2d(nn.Conv2d):

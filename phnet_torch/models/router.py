@@ -7,10 +7,12 @@ ends in ReLU and a sigmoid, so scores lie in [0.5, 1) and VIL's hard
 selection ``diff >= 0.5`` always picks the second branch, as in the
 reference.
 
-As in the JAX package, the chain computes in float32 unless
-``chain_bf16`` (inference only) selects its bf16 mode, whatever the
-compute dtype; the MLP runs in the compute dtype ``dtype`` (the chain's
-output cast to it) and the sigmoid in float32.
+The chain's mode follows ``phnet_tpu/models/router.py``: at inference
+it computes in float32 unless ``chain_bf16`` selects its bf16 mode,
+whatever the compute dtype; in training it computes in the compute dtype
+(the bf16 mode in a bf16 model) unless ``train_chain_f32``. The MLP runs
+in the compute dtype ``dtype`` (the chain's output cast to it) and the
+sigmoid in float32.
 """
 
 from __future__ import annotations
@@ -29,11 +31,12 @@ class AdaptiveRouter(nn.Module):
     def __init__(self, num_anchors: int = 240, channels: int = 64,
                  points: int = 36, reduction: int = 4, blocks: int = 4,
                  dtype: Optional[torch.dtype] = None,
-                 chain_bf16: bool = False):
+                 chain_bf16: bool = False, train_chain_f32: bool = False):
         """``dtype``: the compute dtype (None: float32 compute)."""
         super().__init__()
         self.blocks = blocks
         self.dtype, self.chain_bf16 = dtype, chain_bf16
+        self.train_chain_f32 = train_chain_f32
         a, c, p = num_anchors, channels, points
         self.taps = nn.Parameter(torch.empty(a, blocks * 18))
         self.conv_bias = nn.Parameter(torch.empty(a, blocks * 2))
@@ -61,9 +64,13 @@ class AdaptiveRouter(nn.Module):
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         """feats: [B, A, C, P] -> scores [B, A, 1]."""
         b, a, c, p = feats.shape
+        if self.training:
+            bf16 = self.dtype == torch.bfloat16 and not self.train_chain_f32
+        else:
+            bf16 = self.chain_bf16
         x = router_chain(feats.reshape(b * a, c, p), self.taps,
                          self.conv_bias, self.ln_params, self.blocks,
-                         bf16=self.chain_bf16 and not self.training)
+                         bf16=bf16)
         x = x.reshape(b, a, c * p).to(self.dtype or feats.dtype)
         h = torch.relu(dense(x, self.dense0))
         return torch.sigmoid(widen(torch.relu(dense(h, self.dense1)),

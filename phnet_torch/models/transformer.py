@@ -14,8 +14,8 @@ the FFN's GELU and on its output. Its masks come from the
 ``torch.Generator`` the caller passes, so that a recompute seeded alike
 draws the same masks; with no generator, or in eval mode, there is none.
 
-In bfloat16 (``dtype``, the JAX package's ``compute_dtype="bfloat16"``,
-inference) the decoder's residual stream and memory are cast to bf16 and
+In bfloat16 (``dtype``, the JAX package's ``compute_dtype="bfloat16"``)
+the decoder's residual stream and memory are cast to bf16 and
 its dense layers compute in bf16; its LayerNorms, which have no dtype in
 the JAX package, give float32 from float32 statistics; the q.k logits come
 out of a bf16 product and are cast to float32 before the scale, the
@@ -41,12 +41,15 @@ LN_EPS = 1e-6
 def dropout(x: torch.Tensor, rate: float,
             gen: Optional[torch.Generator]) -> torch.Tensor:
     """flax's ``nn.Dropout``: keep with probability ``1 - rate`` (a uniform
-    draw from ``gen`` at or above ``rate``) and scale the kept by
-    ``1 / (1 - rate)``. Identity when ``gen`` is None or rate is 0."""
+    draw from ``gen`` at or above ``rate``) and divide the kept by the keep
+    rate in x's dtype (a bf16 tensor by bf16(1 - rate), as JAX divides by
+    its weakly typed keep rate). Identity when ``gen`` is None or rate is
+    0."""
     if gen is None or rate <= 0.0:
         return x
     keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), 0.0)
+    keep_rate = float(torch.tensor(1.0 - rate, dtype=x.dtype))
+    return torch.where(keep, x / keep_rate, 0.0)
 
 
 def widen_to(dtype: Optional[torch.dtype]) -> Optional[torch.dtype]:

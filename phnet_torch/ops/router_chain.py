@@ -7,18 +7,22 @@ and bias) -> LN -> ReLU -> 3x3 -> LN -> + residual -> ReLU.
 
 ``bf16=True`` is the chain with bfloat16 intermediates that the JAX
 package serves above 8 streams (``AdaptiveRouter(chain_bf16=True)``,
-``phnet_tpu/models/router.py``): the same function, rounded to bf16 at
-the points :func:`router_chain_plain` lists, with a bf16 output. The
-kernel runs it as a second instance of the same CUDA kernel.
+``phnet_tpu/models/router.py``) and trains in a bf16 model: the same
+function, rounded to bf16 at the points :func:`router_chain_plain` lists,
+with a bf16 output. The kernel runs it as a second instance of the same
+CUDA kernel.
 
 :func:`router_chain` is the wrapper: CUDA tensors run the kernel
 ``csrc/router_chain.cu``, CPU tensors run :func:`router_chain_plain`.
 :func:`router_plan` chooses how the kernel groups the planes. Where a
 gradient is wanted, the wrapper goes through :class:`RouterChainFn`: its
-forward is the same launch, its backward recomputes
-:func:`router_chain_plain` under autograd and differentiates that (the
-kernel has no backward of its own yet; the JAX package trains this chain
-through XLA, not through its Pallas kernel).
+forward is the same launch (in either mode), its backward recomputes
+:func:`router_chain_plain` in the same mode under autograd and
+differentiates that (the kernel has no backward of its own yet; the JAX
+package trains this chain through XLA, not through its Pallas kernel).
+In the bf16 mode the recomputed chain rounds the cotangent to bf16 where
+its forward rounds (the backward of each cast), as JAX's autodiff of its
+bf16 chain does.
 """
 
 from __future__ import annotations
@@ -227,15 +231,16 @@ def _chain(x, taps, bias, ln_params, blocks: int,
 
 class RouterChainFn(torch.autograd.Function):
     """The chain with a gradient: forward as :func:`router_chain` (the
-    kernel on the card), backward by autograd through
-    :func:`router_chain_plain` recomputed from the saved inputs (the range
-    ``router_chain_backward`` in a ``torch.profiler`` trace)."""
+    kernel on the card, float32 or bf16 mode), backward by autograd
+    through :func:`router_chain_plain` in the same mode, recomputed from
+    the saved inputs (the range ``router_chain_backward`` in a
+    ``torch.profiler`` trace)."""
 
     @staticmethod
-    def forward(ctx, x, taps, bias, ln_params, blocks):
+    def forward(ctx, x, taps, bias, ln_params, blocks, bf16=False):
         ctx.save_for_backward(x, taps, bias, ln_params)
-        ctx.blocks = blocks
-        return _chain(x, taps, bias, ln_params, blocks)
+        ctx.blocks, ctx.bf16 = blocks, bf16
+        return _chain(x, taps, bias, ln_params, blocks, bf16)
 
     @staticmethod
     def backward(ctx, grad):
@@ -244,10 +249,10 @@ class RouterChainFn(torch.autograd.Function):
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad(), torch.profiler.record_function(
                 "router_chain_backward"):
-            y = router_chain_plain(*inputs, ctx.blocks)
+            y = router_chain_plain(*inputs, ctx.blocks, ctx.bf16)
             grads = iter(torch.autograd.grad(y, wanted, grad))
         return (*(next(grads) if t.requires_grad else None
-                  for t in inputs), None)
+                  for t in inputs), None, None)
 
 
 def router_chain(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
@@ -255,13 +260,12 @@ def router_chain(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor,
                  bf16: bool = False) -> torch.Tensor:
     """The router chain on x [N, C, P] float32 (see
     :func:`router_chain_plain`); ``bf16`` selects the chain with bf16
-    intermediates and output (inference only: it carries no gradient).
-    CUDA tensors run the kernel, CPU tensors the plain version; in float32
-    with autograd on and an input that wants a gradient, through
-    :class:`RouterChainFn`."""
-    if not bf16 and torch.is_grad_enabled() and any(
+    intermediates and output. CUDA tensors run the kernel, CPU tensors the
+    plain version; with autograd on and an input that wants a gradient,
+    through :class:`RouterChainFn` (in either mode)."""
+    if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, taps, bias, ln_params)):
-        return RouterChainFn.apply(x, taps, bias, ln_params, blocks)
+        return RouterChainFn.apply(x, taps, bias, ln_params, blocks, bf16)
     return _chain(x, taps, bias, ln_params, blocks, bf16)
 
 

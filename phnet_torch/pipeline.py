@@ -92,14 +92,14 @@ class InferencePipeline:
     def _clip_geometry(self, clip, fmt: str) -> Tuple[Tuple[int, int],
                                                       int, int]:
         """(emission frame (H, W), ori_img_h, cut_height) of a clip. VIL:
-        the clip's original size, its ``cut`` or else the top
-        ``cut_scale`` of it (the VIL loader's crop). OL: the clip's
-        ``size`` or else ``org_size`` less its top ``crop_size`` rows; the
-        decode leaves y in that frame."""
+        the clip's original size and its ``cut`` (0 where it has none, as
+        the JAX pipeline reads it: such frames were never cropped). OL:
+        the clip's ``size`` or else ``org_size`` less its top
+        ``crop_size`` rows; the decode leaves y in that frame."""
         m = self.mcfg
         if fmt == "vil":
             size = clip["size"]
-            return size, size[0], clip.get("cut", int(size[0] * m.cut_scale))
+            return size, size[0], clip.get("cut", 0)
         size = clip.get("size") or (m.org_size[0] - m.crop_size,
                                     m.org_size[1])
         return size, 0, 0

@@ -1,12 +1,14 @@
-"""Command line of the port's training (the flags of ``train_vil.py`` this
-slice has):
+"""Command line of the port's VIL-100 training (the flags of
+``train_vil.py`` the port has):
 
     python -m phnet_torch.train --synthetic --epochs 2 --frames 4 \\
         --workdir models/vil100_torch
 
-Float32 on one card (``--device cpu`` for the CPU). Training on VIL-100
-itself (``--data-root`` without ``--synthetic``), the dynamic-k assigner
-and runs over several devices are not ported yet and raise.
+bfloat16 compute on one card, as ``train_vil.py`` trains; ``--fp32`` for
+float32, ``--device cpu`` for the CPU. Training on VIL-100 itself
+(``--data-root`` without ``--synthetic``), the dynamic-k assigner and
+runs over several devices are not ported yet and raise.
+:mod:`phnet_torch.train.openlane` is OpenLane-V's command line.
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ import sys
 from typing import Optional, Sequence
 
 
-def parse_args(argv: Optional[Sequence[str]] = None):
-    ap = argparse.ArgumentParser(prog="python -m phnet_torch.train")
+def common_parser(prog: str, workdir: str) -> argparse.ArgumentParser:
+    """The flags both training command lines take."""
+    ap = argparse.ArgumentParser(prog=prog)
     ap.add_argument("--data-root", default=None)
-    ap.add_argument("--workdir", default="models/VIL100")
+    ap.add_argument("--workdir", default=workdir)
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--frames", type=int, default=None,
                     help="frames per clip (default: sampled_frames)")
@@ -33,34 +36,43 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                          "epoch)")
     ap.add_argument("--accum", type=int, default=1,
                     help="micro-batches per optimizer update")
-    ap.add_argument("--assigner", default="hungarian",
-                    choices=("hungarian", "dynamic_k"))
+    ap.add_argument("--fp32", action="store_true",
+                    help="float32 compute (default: bfloat16, as the JAX "
+                         "package's trainers)")
     ap.add_argument("--devices", type=int, default=1,
                     help="cards to train on (one in this slice)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    return ap
+
+
+def parse_args(argv: Optional[Sequence[str]] = None):
+    ap = common_parser("python -m phnet_torch.train", "models/VIL100")
+    ap.add_argument("--assigner", default="hungarian",
+                    choices=("hungarian", "dynamic_k"))
     return ap.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None):
-    args = parse_args(argv)
+def check_common(args, prog: str, dataset: str):
+    """SystemExit for what the port cannot run yet."""
     if not args.synthetic:
-        raise SystemExit("phnet_torch.train: training on VIL-100 "
-                         f"(--data-root {args.data_root or './dataset'}) is "
-                         "not ported yet; pass --synthetic")
-    if args.assigner != "hungarian":
-        raise SystemExit(f"phnet_torch.train: --assigner {args.assigner} is "
-                         "not ported yet; the port trains with 'hungarian'")
+        raise SystemExit(f"{prog}: training on {dataset} (--data-root "
+                         f"{args.data_root or './dataset'}) is not ported "
+                         "yet; pass --synthetic")
     if args.devices != 1:
-        raise SystemExit(f"phnet_torch.train: --devices {args.devices}: "
-                         "training on more than one device is not ported "
-                         "yet")
+        raise SystemExit(f"{prog}: --devices {args.devices}: training on "
+                         "more than one device is not ported yet")
 
-    from ..config import vil100_config
+
+def run(cfg, args):
+    """Train ``cfg`` with the command line's settings on synthetic clips;
+    returns the epoch losses."""
     from ..data import ClipLoader, SyntheticVideoDataset
     from .trainer import train
 
-    cfg = vil100_config()
+    if not args.fp32:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype="bfloat16"))
     tcfg = dataclasses.replace(
         cfg.train, epochs=args.epochs or cfg.train.epochs,
         accum_steps=args.accum)
@@ -79,6 +91,18 @@ def main(argv: Optional[Sequence[str]] = None):
                        device=args.device)
     print(f"done; epoch losses: {[round(h, 4) for h in history]}")
     return history
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    args = parse_args(argv)
+    prog = "phnet_torch.train"
+    check_common(args, prog, "VIL-100")
+    if args.assigner != "hungarian":
+        raise SystemExit(f"{prog}: --assigner {args.assigner} is not ported "
+                         "yet; the port trains with 'hungarian'")
+    from ..config import vil100_config
+
+    return run(vil100_config(), args)
 
 
 if __name__ == "__main__":

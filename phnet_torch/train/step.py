@@ -4,8 +4,11 @@ A step runs the model's training forward over the clip batch, the
 criterion, the backward and one optimizer update, all inside
 :func:`~phnet_torch.device.full_f32`, so that the backward's convolutions
 and matmuls (the frames' recomputation under remat included) run in
-float32 whatever the TF32 flags say. It makes no host sync: the metrics
-come back as device tensors.
+float32 whatever the TF32 flags say, the float32 parts of a bf16 model
+too. A bf16 model keeps float32 parameters and AdamW moments and casts at
+use (flax's ``param_dtype``); there is no loss scaling, as in the JAX
+package. It makes no host sync: the metrics come back as device
+tensors.
 
 ``accum_steps > 1`` splits the batch into that many micro-batches,
 accumulates their gradients and makes one update on their mean; BatchNorm's

@@ -8,7 +8,9 @@ the checkpoint policy (``best`` when the epoch's mean loss is the lowest
 so far, ``epoch_{n}`` every ``epoch_per_test`` epochs). ``resume`` picks up
 the latest periodic checkpoint, curriculum included; ``initial`` loads
 weights only. A text log (epoch, learning rate, loss) goes to
-``workdir/log.txt``. One device: the card unless ``device="cpu"``.
+``workdir/log.txt``. One device: the card unless ``device="cpu"``. The
+model's compute dtype (float32, or the JAX trainers' bf16) is the
+configuration's.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from ..config import Config
 from ..device import resolve_device
 from ..losses.criterion import LaneCriterion
+from ..models.phnet import check_trainable
 from .checkpoint import CheckpointManager
 from .state import TrainState, create_train_state
 from .step import make_train_step, step_seed
@@ -70,11 +73,10 @@ def train(cfg: Config, dataset, loader, workdir: str,
           verbose: bool = True, device=None
           ) -> Tuple[TrainState, List[float]]:
     """Train ``cfg`` on ``loader``'s batches of ``dataset`` into
-    ``workdir``. Returns the final state and each epoch's mean loss.
-    float32 only: ``compute_dtype="bfloat16"`` raises ValueError."""
-    if cfg.model.compute_dtype != "float32":
-        raise ValueError("bfloat16 training is not ported yet; the port "
-                         "trains with compute_dtype='float32'")
+    ``workdir``. Returns the final state and each epoch's mean loss. A
+    configuration the port cannot train (the multi-scale head) raises
+    ValueError before anything is built."""
+    check_trainable(cfg.model)
     tcfg = cfg.train
     epochs = epochs or tcfg.epochs
     dev = resolve_device(device)

@@ -139,18 +139,25 @@ def test_compute_dtype_is_checked():
         assert got.model.head.router_chain_bf16 is None
 
 
-def test_bf16_training_is_refused(weights, tmp_path):
-    """bf16 training is not ported: the training forward and the trainer
-    raise."""
+def test_bf16_training_is_refused(tmp_path):
+    """bf16 where the port has not ported it refuses clearly: the
+    multi-scale head in bf16 when its config is built, and its training
+    (in either dtype) in the training forward and the trainer. VIL and
+    ``Router4OL`` train in bf16 (``test_torch_train_bf16.py``,
+    ``test_torch_train_ol_bf16.py``)."""
     from phnet_torch.train.trainer import train
 
-    _, tc = cfgs()
-    tm = tp.torch_model(tc, weights)
-    with pytest.raises(ValueError, match="bfloat16 training"):
-        tm.train_forward(torch.zeros((1, 1, 64, 128, 3)),
-                         torch.zeros((1, 1, 4, 19)))
-    with pytest.raises(ValueError, match="bfloat16 training"):
-        train(tcfg.Config(model=tc), None, None, str(tmp_path))
+    with pytest.raises(ValueError, match="bfloat16 compute of the "
+                                         "multi-scale head"):
+        dataclasses.replace(tp.small_ms_cfg(tcfg), compute_dtype="bfloat16")
+    mc = tp.small_ms_cfg(tcfg)
+    tm = tp.torch_model(mc, tp.init_variables(tp.small_ms_cfg(jcfg), 0))
+    tm.train()
+    with pytest.raises(ValueError, match="multi-scale.*not ported yet"):
+        tm.train_forward(torch.zeros((1, 1, 96, 192, 3)),
+                         torch.zeros((1, 1, 4, mc.lane.dim)))
+    with pytest.raises(ValueError, match="multi-scale.*not ported yet"):
+        train(tcfg.Config(model=mc), None, None, str(tmp_path))
 
 
 def test_bridge_needs_no_change(weights):

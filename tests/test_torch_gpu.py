@@ -362,6 +362,40 @@ def test_router_chain_function_gradients_match_plain(cuda, streams):
         assert (g - r).abs().max().item() <= 1e-4 * scale.abs().max().item()
 
 
+@pytest.mark.parametrize("streams,group", [(1, 1), (4, 4)])
+def test_router_chain_bf16_function_under_autograd(cuda, streams, group):
+    """K2's bf16 mode under autograd at the plans of a B = 1 and a B = 4
+    bf16 training step (G = 1 and 4): the forward is one launch of the
+    bf16 instance (counted apart from the float32 one), the same bits as
+    the launch without autograd and a second call; the parameter gradients
+    within 1e-4 of each one's largest entry of autograd straight through
+    ``router_chain_plain(bf16=True)``, which its backward recomputes."""
+    x, params, blocks = chain_args(cuda, streams, grad=True)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert trc.router_plan(x.shape[0], 240, n_sms).group == group
+    cot = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        streams)).to(cuda).bfloat16()
+    before = (trc.router_chain.launches, trc.router_chain.launches_bf16)
+    out = trc.router_chain(x, *params, blocks, bf16=True)
+    assert out.dtype == torch.bfloat16 and out.grad_fn is not None
+    assert (trc.router_chain.launches,
+            trc.router_chain.launches_bf16) == (before[0], before[1] + 1)
+    with torch.no_grad():
+        direct = trc.router_chain(x, *params, blocks, bf16=True)
+        again = trc.router_chain(x, *params, blocks, bf16=True)
+    assert torch.equal(out.detach(), direct) and torch.equal(direct, again)
+    grads = []
+    for fn in (trc.router_chain, trc.router_chain_plain):
+        for p in params:
+            p.grad = None
+        fn(x, *params, blocks, bf16=True).backward(cot)
+        grads.append([p.grad.clone() for p in params])
+    for g, r, name in zip(*grads, ("taps", "conv_bias", "ln_params")):
+        assert g.dtype == torch.float32
+        scale = grads[1][0] if name == "conv_bias" else r
+        assert (g - r).abs().max().item() <= 1e-4 * scale.abs().max().item()
+
+
 @pytest.mark.parametrize("n,r,c", [(48, 8, 240), (16, 4, 32)])
 def test_hungarian_on_card_bit_equal_to_cpu(cuda, n, r, c):
     from phnet_torch.ops.hungarian import hungarian_assign

@@ -103,13 +103,31 @@ def test_propagate_preset_is_refused():
         tcfg.openlane_propagate_config()
 
 
-def test_openlane_training_is_refused(setup):
-    """OL inference is ported, its training is not: the training forward
-    raises rather than run a path nothing holds against JAX."""
-    _, _, _, tm = setup
-    frames = torch.zeros((1, 1) + FRAME)
+def test_openlane_training_is_refused(tmp_path):
+    """OpenLane-V training of the variants the port has not ported yet
+    refuses clearly: the multi-scale head (``Router4OLV2``) in the training
+    forward and the trainer, the prior-propagation preset when it is
+    built, and both through the OL command line (``--variant multiscale``
+    and ``--variant propagate``). ``Router4OL`` trains
+    (``test_torch_train_ol.py``)."""
+    from phnet_torch.train import openlane as ol_cli
+    from phnet_torch.train.trainer import train
+
+    mc = tp.small_ms_cfg(tcfg)
+    tm = tp.torch_model(mc, tp.init_variables(tp.small_ms_cfg(jcfg), 0))
+    tm.train()
+    with pytest.raises(ValueError, match="multi-scale.*not ported yet"):
+        tm.train_forward(torch.zeros((1, 1) + FRAME),
+                         torch.zeros((1, 1, 4, mc.lane.dim)))
+    with pytest.raises(ValueError, match="multi-scale.*not ported yet"):
+        train(tcfg.Config(model=mc), None, None, str(tmp_path))
     with pytest.raises(ValueError, match="not ported"):
-        tm.train_forward(frames, torch.zeros((1, 1, 4, 30)))
+        tcfg.openlane_propagate_config()
+    for variant in ("multiscale", "propagate"):
+        with pytest.raises(SystemExit, match=f"--variant {variant}.*not "
+                                             "ported yet"):
+            ol_cli.main(["--synthetic", "--variant", variant,
+                         "--device", "cpu"])
 
 
 def test_learned_embedding(setup):
@@ -264,7 +282,8 @@ def test_pipeline_emits_in_config_geometry(setup, pipelines, tmp_path):
     own ``size`` is emitted in ``org_size`` less ``crop_size`` rows (the
     same bytes as with OL's frame given), and a crop of 400 rows in place
     of 480 moves every emitted y by -40 half-scale px, x unchanged. VIL: a
-    clip without its ``cut`` is cut at ``cut_scale`` of its height."""
+    clip without its ``cut`` has a cut of 0, as the JAX pipeline reads
+    it."""
     from phnet_torch.evaluation.emit import read_lines_txt
     from phnet_torch.pipeline import InferencePipeline as TorchPipeline
 
@@ -295,7 +314,7 @@ def test_pipeline_emits_in_config_geometry(setup, pipelines, tmp_path):
             n_lanes += 1
     assert n_lanes > 0
     assert base._clip_geometry({"size": (720, 1280)}, "vil") == (
-        (720, 1280), 720, int(720 * tc.cut_scale))
+        (720, 1280), 720, 0)
     assert base._clip_geometry({"size": (720, 1280), "cut": 100},
                                "vil") == ((720, 1280), 720, 100)
 

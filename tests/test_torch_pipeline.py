@@ -55,22 +55,40 @@ def weights():
     return tp.init_variables(tp.jax_cfg(), seed=0)
 
 
-@pytest.mark.parametrize("mode", ["none", "w8"])
-def test_pipeline_matches_jax(mode, weights, tmp_path):
-    jc = jcfg.Config(model=dataclasses.replace(tp.jax_cfg(), quantize=mode))
-    tc = tcfg.Config(model=dataclasses.replace(tp.torch_cfg(), quantize=mode))
-    data = clips()
-    jpipe = JaxPipeline(jc, tp.jax_tree(weights), chunk=CHUNK)
-    tpipe = TorchPipeline(tc, convert(weights), chunk=CHUNK, device="cpu")
-    assert tpipe.memory_window == jpipe.memory_window == 128
+@pytest.fixture(scope="module")
+def pipelines(weights):
+    """A function of a quantize mode giving (JAX pipeline, port pipeline),
+    each built once."""
+    made = {}
+
+    def get(mode):
+        if mode not in made:
+            made[mode] = (
+                JaxPipeline(jcfg.Config(model=dataclasses.replace(
+                    tp.jax_cfg(), quantize=mode)), tp.jax_tree(weights),
+                    chunk=CHUNK),
+                TorchPipeline(tcfg.Config(model=dataclasses.replace(
+                    tp.torch_cfg(), quantize=mode)), convert(weights),
+                    chunk=CHUNK, device="cpu"))
+        return made[mode]
+
+    return get
+
+
+def compare_emission(jpipe, tpipe, data, tmp_path, atol=1.0):
+    """Both pipelines' ``run_and_emit`` over ``data``: the same files,
+    lane counts per file equal, points within ``atol`` px, ground truth
+    byte-equal. Returns the lane count."""
     jstats = jpipe.run_and_emit(data, str(tmp_path / "jax_pred"),
                                 str(tmp_path / "jax_anno"))
     tstats = tpipe.run_and_emit(data, str(tmp_path / "torch_pred"),
                                 str(tmp_path / "torch_anno"))
-    assert tstats["frames"] == jstats["frames"] == 9
-    assert tstats["videos"] == jstats["videos"] == ["clip_0", "clip_1"]
+    n_frames = sum(len(c["frame_names"]) for c in data)
+    assert tstats["frames"] == jstats["frames"] == n_frames
+    assert tstats["videos"] == jstats["videos"] == [c["name"] for c in data]
     files = lines_files(tmp_path / "jax_pred")
-    assert files == lines_files(tmp_path / "torch_pred") and len(files) == 9
+    assert files == lines_files(tmp_path / "torch_pred")
+    assert len(files) == n_frames
     n_lanes = 0
     for f in files:
         jl = read_lines_txt(str(tmp_path / "jax_pred" / f))
@@ -78,11 +96,30 @@ def test_pipeline_matches_jax(mode, weights, tmp_path):
         assert len(tl) == len(jl), f
         for a, b in zip(jl, tl):
             assert len(a) == len(b), f
-            np.testing.assert_allclose(b, a, rtol=0, atol=1.0, err_msg=f)
+            np.testing.assert_allclose(b, a, rtol=0, atol=atol, err_msg=f)
         n_lanes += len(tl)
         ja = (tmp_path / "jax_anno" / f).read_bytes()
         assert (tmp_path / "torch_anno" / f).read_bytes() == ja
-    assert n_lanes > 0
+    return n_lanes
+
+
+@pytest.mark.parametrize("mode", ["none", "w8"])
+def test_pipeline_matches_jax(mode, pipelines, tmp_path):
+    jpipe, tpipe = pipelines(mode)
+    assert tpipe.memory_window == jpipe.memory_window == 128
+    assert compare_emission(jpipe, tpipe, clips(), tmp_path) > 0
+
+
+def test_clip_without_cut_emits_as_jax(pipelines, tmp_path):
+    """A VIL clip without ``cut`` (as the synthetic clips of both packages
+    are) is emitted with a cut of 0 by both pipelines: the predicted lines
+    byte-equal, the ground truth too."""
+    jpipe, tpipe = pipelines("none")
+    data = [{k: v for k, v in c.items() if k != "cut"} for c in clips()]
+    assert compare_emission(jpipe, tpipe, data, tmp_path, atol=0.0) > 0
+    for f in lines_files(tmp_path / "jax_pred"):
+        assert ((tmp_path / "torch_pred" / f).read_bytes()
+                == (tmp_path / "jax_pred" / f).read_bytes()), f
 
 
 def test_reset_memory_per_chunk(weights):

@@ -1,0 +1,127 @@
+"""The training command lines (``python -m phnet_torch.train`` and
+``python -m phnet_torch.train.openlane``) on one-epoch synthetic runs on
+the CPU, and OpenLane-V's synthetic labels against the JAX package's
+label encoder.
+
+The command lines build the full-width presets; here the presets are
+swapped for the small configurations of ``torch_parity`` (their training
+settings kept), so that an epoch of 2 clips of 2 frames takes seconds.
+Each run must train the compute dtype the flags ask for (bfloat16 unless
+``--fp32``, as ``train_vil.py`` and ``train_ol.py``) and the variant
+(``Router4OL`` for OpenLane-V), write its log and checkpoints, and end
+with finite epoch losses.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+import phnet_torch.config as tcfgmod
+import phnet_tpu.config as jcfgmod
+import torch_parity as tp
+from phnet_torch.data.synthetic import synthetic_clip
+from phnet_torch.train import __main__ as vil_cli
+from phnet_torch.train import openlane as ol_cli
+from phnet_torch.train import trainer
+from phnet_tpu.geometry import encode_lane_label as jax_encode
+
+
+def small(preset_cfg, model):
+    """``preset_cfg`` with the small model and one checkpoint an epoch."""
+    return dataclasses.replace(preset_cfg, model=model, train=dataclasses.
+                               replace(preset_cfg.train, epoch_per_test=1))
+
+
+@pytest.fixture
+def trained(monkeypatch):
+    """Swap the presets for small ones and record what ``train`` gets."""
+    seen = {}
+    real_train = trainer.train
+
+    def spy(cfg, *args, **kw):
+        seen["cfg"] = cfg
+        return real_train(cfg, *args, verbose=False, **kw)
+
+    monkeypatch.setattr(trainer, "train", spy)
+    real_vil = tcfgmod.vil100_config
+    monkeypatch.setattr(tcfgmod, "vil100_config", lambda: small(
+        real_vil(), tp.torch_cfg()))
+    real_ol = tcfgmod.openlane_config
+
+    def ol(n_offsets=72):
+        seen["n_offsets"] = n_offsets
+        return small(real_ol(n_offsets), tp.small_ol_cfg(tcfgmod))
+
+    monkeypatch.setattr(tcfgmod, "openlane_config", ol)
+    return seen
+
+
+COMMON = ["--synthetic", "--epochs", "1", "--frames", "2",
+          "--synthetic-videos", "2", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("fp32", [False, True])
+def test_vil_cli_trains_in_the_asked_dtype(trained, tmp_path, fp32):
+    argv = COMMON + ["--workdir", str(tmp_path)] + (["--fp32"] if fp32
+                                                    else [])
+    history = vil_cli.main(argv)
+    assert len(history) == 1 and np.isfinite(history[0])
+    m = trained["cfg"].model
+    assert m.compute_dtype == ("float32" if fp32 else "bfloat16")
+    assert m.lane.n_lengths == 2
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "best.pt", "epoch_1.pt", "log.txt"]
+
+
+@pytest.mark.parametrize("fp32", [False, True])
+def test_openlane_cli_trains_router4ol(trained, tmp_path, fp32):
+    argv = COMMON + ["--workdir", str(tmp_path), "--n-offsets", "24"] + (
+        ["--fp32"] if fp32 else [])
+    history = ol_cli.main(argv)
+    assert len(history) == 1 and np.isfinite(history[0])
+    m = trained["cfg"].model
+    assert trained["n_offsets"] == 24
+    assert m.compute_dtype == ("float32" if fp32 else "bfloat16")
+    assert (m.head.variant, m.lane.n_lengths, m.routing) == (
+        "single", 1, "soft")
+    assert trained["cfg"].train.loss.style == "blend_cls"
+    assert (tmp_path / "log.txt").exists()
+
+
+def test_openlane_cli_resumes(trained, tmp_path):
+    """A second epoch resumed from the first's checkpoint: the step count
+    and the curriculum pick up where they stopped."""
+    argv = COMMON + ["--workdir", str(tmp_path)]
+    ol_cli.main(argv)
+    history = ol_cli.main(argv[:2] + ["2"] + argv[3:] + ["--resume"])
+    assert len(history) == 1 and np.isfinite(history[0])
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "best.pt", "epoch_1.pt", "epoch_2.pt", "log.txt"]
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--data-root", "/data/OpenLane"], "not ported yet; pass --synthetic"),
+    (["--synthetic", "--devices", "2"], "more than one device"),
+])
+def test_openlane_cli_clear_errors(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        ol_cli.main(argv)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_openlane_synthetic_labels_equal_jax_encoder(seed):
+    """OL synthetic clips (one length field, 4 lanes, 72 offsets, the OL
+    preset's image size): their labels equal the JAX package's
+    ``encode_lane_label`` on the same lane points."""
+    m = tcfgmod.openlane_config().model
+    clip = synthetic_clip(seed, 3, m.img_h, m.img_w, spec=m.lane,
+                          max_lanes=m.max_lanes)
+    assert clip["labels"].shape == (3, 4, 5 + 1 + 72)
+    ref_spec = jcfgmod.openlane_config().model.lane
+    for t in range(3):
+        lanes = [list(map(tuple, p)) for p in clip["points"][t]]
+        ref = jax_encode(lanes, list(range(len(lanes))), ref_spec, m.img_h,
+                         m.img_w, m.max_lanes)
+        np.testing.assert_array_equal(clip["labels"][t], ref)
+        assert (clip["labels"][t][:, 1] == 1.0).sum() >= 1

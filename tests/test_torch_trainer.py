@@ -318,14 +318,28 @@ def test_config_rejects_unported_training_variants():
 @pytest.mark.parametrize("quantize", ["none", "w8"])
 def test_combine_keeps_the_graph_only_in_f32_training(quantize):
     """DynamicConv's collapsed weights carry gradients in train mode (the
-    chain rule to the factored parameters runs once a step), never in eval
-    mode, and never for the inference-only quantized forms."""
+    chain rule to the factored parameters runs once a step), in a float32
+    and in a bf16 model (the combine runs in float32 and its result is
+    cast to bf16, the bf16 products then differentiated through the
+    cast), never in eval mode, and never for the inference-only quantized
+    forms."""
     from phnet_torch.models.dynamic_conv import DynamicConv
 
-    dyn = DynamicConv(feat_size=8, hidden_dim=16, quantize=quantize)
-    dyn.reset_parameters(torch.Generator().manual_seed(0))
-    key = "b" if quantize == "w8" else 1
-    assert dyn.combine_weights()["gen1"][key].requires_grad == (
-        quantize == "none")
-    dyn.eval()
-    assert not dyn.combine_weights()["gen1"][key].requires_grad
+    for dtype in (None, torch.bfloat16):
+        dyn = DynamicConv(feat_size=8, hidden_dim=16, quantize=quantize,
+                          dtype=dtype)
+        dyn.reset_parameters(torch.Generator().manual_seed(0))
+        key = "b" if quantize == "w8" else 1
+        combined = dyn.combine_weights()
+        assert combined["gen1"][key].requires_grad == (quantize == "none")
+        if quantize == "none":
+            assert combined["gen1"][0].dtype == (dtype or torch.float32)
+            out = dyn(torch.randn(1, 4, 16), torch.randn(1, 4, 8, 16),
+                      combined)
+            assert out.dtype == torch.float32
+            out.sum().backward()
+            for lin in (dyn.gen1_a, dyn.gen1_b, dyn.out_a, dyn.out_b):
+                assert lin.weight.grad is not None
+                assert lin.weight.grad.dtype == torch.float32
+        dyn.eval()
+        assert not dyn.combine_weights()["gen1"][key].requires_grad

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its time on the card.
 
-    python tools/torch_train_profile.py [--batch 1] [--frames 16]
+    python tools/torch_train_profile.py [--preset vil100|openlane]
+        [--compute-dtype float32|bfloat16] [--batch 1] [--frames 16]
         [--steps 3] [--profile-steps 1] [--no-remat]
 
-Trains the full-width VIL-100 model (float32, seeded weights, a fixed
+Trains the full-width VIL-100 model (or ``openlane_config``'s
+``Router4OL``; float32 or the JAX trainers' bf16; seeded weights, a fixed
 batch of seeded synthetic clips) with ``phnet_torch.train.step`` (remat
 per frame, the configuration's default, unless ``--no-remat``): warms
 up, times ``--steps`` steps without the profiler, then traces
@@ -21,7 +23,6 @@ the step turns TF32 off itself. Needs a CUDA card.
 """
 
 import argparse
-import dataclasses
 import json
 import os
 import subprocess
@@ -45,6 +46,9 @@ GROUPS = (  # first match wins; matched against the lower-cased kernel name
 )
 
 
+PRESETS = {"vil100": "vil100_config", "openlane": "openlane_config"}
+
+
 def group_of(name: str) -> str:
     low = name.lower()
     for group, keys in GROUPS:
@@ -61,6 +65,9 @@ def main() -> int:
     ap.add_argument("--profile-steps", type=int, default=1)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--preset", choices=tuple(PRESETS), default="vil100")
+    ap.add_argument("--compute-dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
@@ -76,9 +83,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card)
-    cfg = chip_smoke.train_config(0.1)
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, remat_frames=not args.no_remat))
+    cfg = chip_smoke.train_config(0.1, PRESETS[args.preset],
+                                  compute_dtype=args.compute_dtype,
+                                  remat=not args.no_remat)
     state = create_train_state(cfg, 1000, "cuda", seed=0)
     frames, labels = chip_smoke.synthetic_batch(torch, cfg, args.batch,
                                                 args.frames)
@@ -101,7 +108,8 @@ def main() -> int:
     prof = chip_smoke.profile_steps(torch, one, args.profile_steps,
                                     group_of)
     dev = prof["device_ms"]
-    print(f"{args.steps} steps of {args.batch} x {args.frames} frames at "
+    print(f"{args.preset} {args.compute_dtype}: {args.steps} steps of "
+          f"{args.batch} x {args.frames} frames at "
           f"{cfg.model.img_h}x{cfg.model.img_w}, dropout 0.1, "
           f"remat {cfg.model.remat_frames}: "
           f"wall {wall:.1f} ms/step ({prof['profiled_wall_ms']:.1f} under "
@@ -121,7 +129,9 @@ def main() -> int:
                            key=lambda kv: -kv[1])[:12]:
         print(f"  {ms:9.3f}  {name[:110]}")
     print(json.dumps({
-        "card": card, "batch": args.batch, "frames": args.frames,
+        "card": card, "preset": args.preset,
+        "compute_dtype": args.compute_dtype, "batch": args.batch,
+        "frames": args.frames,
         "steps": args.steps,
         "remat": cfg.model.remat_frames,
         "wall_ms_per_step": wall,
