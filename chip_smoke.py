@@ -108,17 +108,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     CPU's copies do, the step without remat giving the same loss; K2's
     bf16 mode under autograd 3 times a frame, again in the remat
     recompute, its float32 instance never; then the same with
-    ``router_train_chain_f32`` (one one-ulp copy; the float32 instance
-    launches, the bf16 mode never);
+    ``router_train_chain_f32`` on a 2-frame clip (one one-ulp copy; the
+    float32 instance launches, the bf16 mode never);
 22. OpenLane-V training (``openlane_config``, ``Router4OL``), card
     against CPU: phase 15 in float32, phase 21 in bf16;
 23. training throughput, phase 16's protocol: VIL bf16 at B = 1 and 4
-    (``bench.py``'s shapes; B = 1 profiled), OpenLane-V in float32 and
-    bf16 at B = 1 (1 warm-up and 3 timed steps, no profile);
-24. ``python -m phnet_torch.train.openlane --synthetic``'s code path
-    (bf16; its parsed flags into its ``run``, with a resumable checkpoint
-    every epoch) for one epoch, then resumed for a second. Phase 18 also holds K2's bf16 mode at one stream (G = 1, the
-    plan of a B = 1 training step).
+    (``bench.py``'s shapes; B = 1 profiled), OpenLane-V in bf16 (what
+    ``train_ol.py`` trains by default) at B = 1 (1 warm-up and 3 timed
+    steps, no profile);
+24. ``python -m phnet_torch.train.openlane --synthetic`` through its
+    ``main`` (bf16) for the preset's 5 epochs to its first resumable
+    checkpoint, one step an epoch, then resumed for a sixth.
+
+Phase 18 also holds K2's bf16 mode at one stream (G = 1, the plan of a
+B = 1 training step).
 
 Float32 outside the quantized products and the bf16 phases 18-24. The
 model turns TF32 off itself (``phnet_torch.device.full_f32``); the script
@@ -1250,13 +1253,17 @@ def synthetic_batch(torch, cfg, clips, frames_per_clip, seed=1):
 
 
 @contextlib.contextmanager
-def pinned_assignment(torch, matched):
-    """The training forward with its Hungarian assignment replaced by
-    ``matched`` ([2, T, S, B, L]: first branch, second branch), frame by
-    frame: a bf16 step's gradients compared across devices must not hinge
-    on a match that rounding noise flips."""
+def pinned_assignment(matched):
+    """The port's training forward with its Hungarian assignment replaced
+    by ``matched`` ([2, T, S, B, L]: first branch, second branch; an array
+    or a tensor), frame by frame: a bf16 step's gradients compared across
+    devices must not hinge on a match that rounding noise flips. (The CPU
+    parity tests, ``tests/torch_train_parity.py``, hold the same copy.)"""
+    import torch
+
     import phnet_torch.models.phnet as tph
 
+    matched = torch.as_tensor(matched).long()
     frame = iter(range(matched.shape[1]))
     real = tph.train_assign
 
@@ -1286,7 +1293,7 @@ def grad_run(torch, cfg, frames, labels, device, pin=None, leaves=None):
     crit = LaneCriterion(cfg.model, cfg.train.loss)
     frames, labels = frames.to(device), labels.to(device)
     trc.router_chain.launches = trc.router_chain.launches_bf16 = 0
-    with full_f32(), (pinned_assignment(torch, pin) if pin is not None
+    with full_f32(), (pinned_assignment(pin) if pin is not None
                       else contextlib.nullcontext()):
         outs, _ = state.model.train_forward(frames, labels)
         loss, _ = crit(outs, labels)
@@ -1376,10 +1383,11 @@ def phase_train_parity(torch, card, preset="vil100_config",
     return card_run["k2"]
 
 
-def one_ulp(torch, x, seed):
-    """x with each element moved by -1, 0 or +1 bf16 ulp (relative)."""
+def one_ulp(x, seed):
+    """x with each element moved by -1, 0 or +1 bf16 ulp (relative), as
+    ``tests/test_torch_bf16.py``'s ``one_ulp`` moves an array."""
     k = np.random.default_rng(seed).integers(-1, 2, tuple(x.shape))
-    return x * (1.0 + torch.from_numpy(k.astype(np.float32)) * 2.0 ** -8)
+    return x * (1.0 + x.new_tensor(k * 2.0 ** -8))
 
 
 def leaf_group(name):
@@ -1415,7 +1423,7 @@ def phase_train_parity_bf16(torch, card, preset="vil100_config",
     cfg = train_config(0.0, preset, compute_dtype="bfloat16",
                        chain_f32=chain_f32)
     frames, labels = synthetic_batch(torch, cfg, 1, frames_per_clip)
-    copies = [one_ulp(torch, frames, s) for s in ulp_seeds]
+    copies = [one_ulp(frames, s) for s in ulp_seeds]
     t0 = time.perf_counter()
     cpu = grad_run(torch, cfg, frames, labels, "cpu")
     pin = cpu["matched"]
@@ -1704,40 +1712,42 @@ def phase_trainer(torch, card, frames_per_clip=4):
 
 
 def phase_trainer_openlane(torch, card, frames_per_clip=4):
-    """``python -m phnet_torch.train.openlane``'s code path (its parsed
-    flags into ``run``: ``Router4OL`` in bf16, its default) for one epoch
-    of 2 synthetic 4-frame videos, then resumed for a second. The preset
-    saves a resumable checkpoint every ``epoch_per_test`` = 5 epochs; the
-    run takes one every epoch."""
+    """``python -m phnet_torch.train.openlane --synthetic`` through its
+    ``main`` (``Router4OL`` in bf16, its default) on one synthetic 4-frame
+    video, one step an epoch: ``epoch_per_test`` epochs (5: the preset
+    saves its first resumable checkpoint there), then resumed for one
+    more. K2's bf16 mode launches 3 times a frame, again in the remat
+    recompute, every step; its float32 instance never."""
     from phnet_torch.config import openlane_config
     from phnet_torch.ops import router_chain as trc
     from phnet_torch.train import openlane as cli
 
     cfg = openlane_config()
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, epoch_per_test=1))
+    every = cfg.train.epoch_per_test
     t0 = time.perf_counter()
     trc.router_chain.launches = trc.router_chain.launches_bf16 = 0
     with tempfile.TemporaryDirectory() as workdir:
         argv = ["--synthetic", "--frames", str(frames_per_clip),
-                "--synthetic-videos", "2", "--batch", "1", "--workdir",
+                "--synthetic-videos", "1", "--batch", "1", "--workdir",
                 workdir]
-        first = cli.run(cfg, cli.parse_args(argv + ["--epochs", "1"]))
-        second = cli.run(cfg, cli.parse_args(argv + ["--epochs", "2",
-                                                     "--resume"]))
+        first = cli.main(argv + ["--epochs", str(every)])
+        second = cli.main(argv + ["--epochs", str(every + 1), "--resume"])
         files = sorted(os.listdir(workdir))
     k2 = (trc.router_chain.launches, trc.router_chain.launches_bf16)
-    if not (len(first) == len(second) == 1
+    want_k2 = (0, (every + 1) * 2 * cfg.model.head.refine_layers
+               * frames_per_clip)
+    if not (len(first) == every and len(second) == 1
             and np.isfinite(first + second).all()):
         raise AssertionError(f"OL trainer epoch losses {first} then "
                              f"{second}")
-    if "epoch_2.pt" not in files or not k2[1] or k2[0]:
+    if f"epoch_{every}.pt" not in files or k2 != want_k2:
         raise AssertionError(f"OL trainer: files {files}, K2 launches "
-                             f"(float32, bf16) {k2}")
-    print(f"[trainer openlane] phnet_torch.train.openlane's run, "
-          f"--synthetic (Router4OL, bf16): epoch 1 loss {first[0]:.4f}, "
-          f"resumed epoch 2 loss {second[0]:.4f}; files {files}; K2 launches "
-          f"(float32, bf16) {k2}; {time.perf_counter() - t0:.1f} s [{card}]")
+                             f"(float32, bf16) {k2}, want {want_k2}")
+    print(f"[trainer openlane] python -m phnet_torch.train.openlane "
+          f"--synthetic (Router4OL, bf16), one step an epoch: epoch losses "
+          f"{', '.join(f'{x:.4f}' for x in first)}, resumed from epoch "
+          f"{every}: {second[0]:.4f}; files {files}; K2 launches (float32, "
+          f"bf16) {k2}; {time.perf_counter() - t0:.1f} s [{card}]")
 
 
 def main() -> int:
@@ -1792,17 +1802,16 @@ def main() -> int:
     try:
         phase_train_parity_bf16(torch, card)
         phase_train_parity_bf16(torch, card, chain_f32=True,
-                                ulp_seeds=(5,))
-        phase_train_parity(torch, card, "openlane_config")
+                                frames_per_clip=2, ulp_seeds=(5,))
+        ol_f32_k2 = phase_train_parity(torch, card, "openlane_config")
         phase_train_parity_bf16(torch, card, "openlane_config")
     finally:
         torch.backends.cudnn.allow_tf32 = False
     training_bf16 = phase_train_throughput(torch, card,
                                            compute_dtype="bfloat16")
-    training_ol = {dt: phase_train_throughput(
+    training_ol = phase_train_throughput(
         torch, card, batches=(1,), warmup=1, timed=3,
-        preset="openlane_config", compute_dtype=dt, profiled=())
-        for dt in ("float32", "bfloat16")}
+        preset="openlane_config", compute_dtype="bfloat16", profiled=())
     phase_trainer_openlane(torch, card)
 
     w8_ms_frame = stage_sum(w8_ms, 4, [name for name, _, _ in ms_products])
@@ -1845,8 +1854,8 @@ def main() -> int:
             "library_ms": numbers["library_ms"]})
         if name == "router_chain":  # its launches in a B=1 training step
             kernels[-1]["training_launches"] = training[1]["k2_launches"]
-            kernels[-1]["openlane_training_launches"] = (
-                training_ol["float32"][1]["k2_launches"])
+            # OpenLane-V in float32: phase 22's step of a 4-frame clip
+            kernels[-1]["openlane_training_launches"] = ol_f32_k2[0]
         kernels[-1].update(ol_keys[name])
     for name, base, numbers, source, count in (  # the bf16 paths' entries
             ("router_chain_bf16", "router_chain",
@@ -1869,8 +1878,7 @@ def main() -> int:
     kernels[-2]["b1_bound_ms"] = chain_bf16[1]["bound_ms"]
     # its launches in a bf16 B=1 training step (VIL; OpenLane-V)
     kernels[-2]["training_launches"] = training_bf16[1]["k2_launches"]
-    kernels[-2]["openlane_training_launches"] = (
-        training_ol["bfloat16"][1]["k2_launches"])
+    kernels[-2]["openlane_training_launches"] = training_ol[1]["k2_launches"]
     kernels[-2]["f32_mode_ms"] = chain_bf16[16]["f32_ms"]
     kernels[-1]["f32x_ms"] = w8_bf16x["f32x_ms"]
     print(f"[done] {time.perf_counter() - t0:.1f} s")

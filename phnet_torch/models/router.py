@@ -63,6 +63,12 @@ class AdaptiveRouter(nn.Module):
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         """feats: [B, A, C, P] -> scores [B, A, 1]."""
+        return torch.sigmoid(widen(torch.relu(self.logits(feats)),
+                                   self.dtype))
+
+    def logits(self, feats: torch.Tensor) -> torch.Tensor:
+        """The MLP's output before its ReLU, in the compute dtype: [B, A,
+        1]."""
         b, a, c, p = feats.shape
         if self.training:
             bf16 = self.dtype == torch.bfloat16 and not self.train_chain_f32
@@ -72,6 +78,4 @@ class AdaptiveRouter(nn.Module):
                          self.conv_bias, self.ln_params, self.blocks,
                          bf16=bf16)
         x = x.reshape(b, a, c * p).to(self.dtype or feats.dtype)
-        h = torch.relu(dense(x, self.dense0))
-        return torch.sigmoid(widen(torch.relu(dense(h, self.dense1)),
-                                   self.dtype))
+        return dense(torch.relu(dense(x, self.dense0)), self.dense1)

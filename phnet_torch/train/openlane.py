@@ -17,7 +17,7 @@ from __future__ import annotations
 import sys
 from typing import Optional, Sequence
 
-from .__main__ import check_common, common_parser, run
+from .cli import check_common, common_parser, run
 
 PROG = "phnet_torch.train.openlane"
 VARIANTS = {"single": "openlane_config",

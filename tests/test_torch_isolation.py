@@ -49,6 +49,7 @@ def test_port_sources_exist():
             "phnet_torch/train/optimizer.py", "phnet_torch/train/state.py",
             "phnet_torch/train/step.py", "phnet_torch/train/checkpoint.py",
             "phnet_torch/train/trainer.py", "phnet_torch/train/__main__.py",
+            "phnet_torch/train/cli.py", "phnet_torch/train/openlane.py",
             "phnet_torch/data/synthetic.py", "phnet_torch/data/loader.py",
             "tools/torch_train_profile.py", "phnet_torch/models/head_ms.py",
             "phnet_torch/ops/sampler.py"} <= names

@@ -5,17 +5,20 @@ with the same flag, by the one-ulp method of ``torch_train_parity``.
 
 Tolerances as ``test_torch_train_bf16.py``'s (measured ratios of the gap
 to the spread in brackets): the matches equal on the robust slots (20 of
-24 valid slots robust); the loss (0.17x), every gradient leaf (at most
-1.64x) and BatchNorm's running statistics (0.77x) within ``FACTOR`` times
-the port's one-ulp spread, the routers' leaves within ``FACTOR`` times
-the larger of the port's and JAX's spread (the stage-2 router's MLP is
-2.4x the port's spread from JAX here too, so the chain's precision does
-not set that gap). With the float32 chain the conv biases' gradient is
-zero up to float32 rounding (2e-7 to 3e-7 of the taps' on both sides).
+24 valid slots robust); the loss (0.07x), every gradient leaf (at most
+1.49x, the routers' 1.00x) and BatchNorm's running statistics (0.77x)
+within ``FACTOR`` times the port's one-ulp spread. With the float32 chain
+the conv biases' gradient is zero up to float32 rounding (1.3e-7 to
+3.1e-7 of the taps' on both sides; 0.45-0.63x of the larger spread).
+
+Controls as ``test_torch_train_bf16.py``'s: the port's float32 step (6
+running statistics outside) and BatchNorm's backward without the mean of
+the cotangent (10 leaves outside, the stem's bias at 9.5x its bound).
 """
 
 import pytest
 
+import phnet_torch.ops.batchnorm as tbn
 import torch_train_parity as ttp
 
 FACTOR = 2.0
@@ -46,3 +49,19 @@ def test_leaf_gradient_matches(run, name):
 
 def test_batchnorm_running_stats(run):
     ttp.check_running_stats(run, FACTOR)
+
+
+def test_float32_step_fails_the_bounds(run):
+    """The port's float32 step posing as the bf16 one: its running
+    statistics are outside the bounds."""
+    f32 = ttp.control_step(run, "float32")
+    assert ttp.stats_outside(run, f32, FACTOR)
+
+
+def test_planted_fault_fails_the_bounds(run, monkeypatch):
+    """A step whose BatchNorm backward drops the mean of the cotangent:
+    gradient leaves are outside their bounds."""
+    monkeypatch.setattr(tbn.BatchNormTrainFn, "backward",
+                        ttp.without_mean_term(tbn.BatchNormTrainFn.backward))
+    assert ttp.leaves_outside(run, ttp.control_step(run), FACTOR)
+
