@@ -72,14 +72,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     relative perturbation of the frames, and the Hungarian matches of both
     branches equal (or no more flips than the perturbed CPU run shows);
 16. training throughput: the full-width model, 16-frame clips, B = 1 and
-    4, dropout 0.1, 2 warm-up and 5 timed steps on a fixed batch: step
+    4, dropout 0.1, 1 warm-up and 3 timed steps on a fixed batch: step
     wall p50, clip-frames/s, device ms (CUDA events), peak memory, K2
     launches a step (3 a frame forward, again in the remat backward: the
     counter must read exactly that, and K1 and K3 none), then at B = 1
-    one step under ``torch.profiler`` for launches a step, busy share and
-    the Hungarian solve's and K2's device ms (``tools/torch_train_profile
-    .py`` profiles B = 4); the loss finite and lower at the last step
-    than at the first;
+    one step under the profiler of the card's activity alone for launches
+    a step and busy share (``tools/torch_train_profile.py`` gives the
+    Hungarian solve's and K2's backward device ms); the loss finite and
+    lower at the last step than at the first;
 17. the trainer: ``phnet_torch.train.trainer.train`` for one epoch of 2
     steps on 2 synthetic 4-frame videos into a temporary directory, then
     resumed for a second epoch: both epochs' losses finite, and the resume
@@ -113,12 +113,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 22. OpenLane-V training (``openlane_config``, ``Router4OL``), card
     against CPU: phase 15 in float32, phase 21 in bf16;
 23. training throughput, phase 16's protocol: VIL bf16 at B = 1 and 4
-    (``bench.py``'s shapes; B = 1 profiled), OpenLane-V in bf16 (what
-    ``train_ol.py`` trains by default) at B = 1 (1 warm-up and 3 timed
-    steps, no profile);
+    (``bench.py``'s shapes), OpenLane-V in bf16 (what ``train_ol.py``
+    trains by default) at B = 1 without the profiled step;
 24. ``python -m phnet_torch.train.openlane --synthetic`` through its
     ``main`` (bf16) for the preset's 5 epochs to its first resumable
-    checkpoint, one step an epoch, then resumed for a sixth.
+    checkpoint, one step an epoch, then resumed for a sixth;
+25. lane NMS at the prior-propagation head's shape: phase 11 at R = 244
+    rows (240 anchors and 4 propagated slots, a partial last warp; the
+    main path's streams end in 4 dead rows, cls [20, -20] and xs -2);
+26. ``openlane_propagate_config`` (``Router4OLV3``) served at full width,
+    phase 5's schedule, in float32, bf16 and w8: lane NMS once a tick,
+    K3 12 times a tick in w8 and never otherwise, the router chain never
+    (the head routes with per-row MLPs);
+27. its card against CPU on a 3-frame clip, float32 (cuDNN's TF32 flag
+    on) and bf16, the one-frame carry entering the later frames;
+28. ``openlane_multiscale_config(compute_dtype="bfloat16")`` (the encoder
+    in bf16, the head in float32) served unquantized and in w8 (K3 13
+    times a tick, its x float32), then card against CPU;
+29. the multi-scale and prior-propagation heads in training: a step of a
+    2-frame clip card against CPU in float32 (phase 15) and bf16 (phase
+    21), a timed B = 1, T = 16 bf16 step of each (launches and kernel time
+    from one step under the profiler of the card's activity alone), and
+    the OL command line's ``main`` with ``--variant multiscale`` and
+    ``--variant propagate`` to the first resumable checkpoint and a
+    resume; neither head launches K2.
 
 Phase 18 also holds K2's bf16 mode at one stream (G = 1, the plan of a
 B = 1 training step).
@@ -129,7 +147,8 @@ also turns it off for the plain versions it holds the kernels against.
 The line before the last holds one JSON object per kernel (K2's with its
 launches in a training step beside its serving launches, its bf16 mode's
 in a bf16 training step; each kernel's
-launches and times on the OpenLane-V paths under ``openlane_*`` keys; K2's
+launches and times on the OpenLane-V paths under ``openlane_*`` keys, K1's
+at the prior-propagation head's 244 rows under ``propagate_rows_*``; K2's
 bf16 mode and K3 at bf16 x as entries of their own); the last line is
 ``{"ok": true, "device": {...}}``.
 Without a card, or without the package beside it, the script exits
@@ -244,7 +263,8 @@ def bound(nbytes, ops, flops=F32_FLOPS):
 
 
 NMS_KINDS = ("seeded", "tied", "all_valid", "all_invalid", "few_valid",
-             "duplicates", "neg_zero", "nan_score")
+             "duplicates", "neg_zero", "nan_score", "dead_rows")
+DEAD_ROWS = 4  # the prior-propagation head's K slots, the last rows
 
 
 def nms_stream(kind, seed, a=240, n_offsets=36, conf=0.6, n_lengths=2):
@@ -283,13 +303,20 @@ def nms_stream(kind, seed, a=240, n_offsets=36, conf=0.6, n_lengths=2):
     elif kind == "duplicates":  # rows n..3n repeat rows 0..2n, scores too
         n = a // 6
         p[n:3 * n], s[n:3 * n] = p[0:2 * n].copy(), s[0:2 * n].copy()
-    elif kind != "seeded":
+    elif kind not in ("seeded", "dead_rows"):
         raise KeyError(kind)
     col_xs = 5 + n_lengths
     routed = rng.normal(size=(a, col_xs + n_offsets))
     routed[:, 2] = p[:, 2]
     routed[:, 5] = p[:, 4] / (n_offsets - 1)
     routed[:, col_xs:] = p[:, 5:] / 767
+    if kind == "dead_rows":  # empty propagated slots: cls [20, -20], zero
+        # geometry and length, the xs at -2; their score is the softmax's
+        dead = slice(a - DEAD_ROWS, a)
+        routed[dead, :2] = 20.0, -20.0
+        routed[dead, 2:col_xs] = 0.0
+        routed[dead, col_xs:] = -2.0
+        s[dead] = np.float32(1.0 / (1.0 + np.exp(40.0)))
     s = s.astype(np.float32)
     valid = (s >= np.float32(conf)) | np.isin(np.arange(a), forced)
     return routed.astype(np.float32), s, valid
@@ -379,21 +406,24 @@ def phase_build():
 NMS_LAYOUTS = {"vil": (36, 8, 0.6, 2), "openlane": (72, 4, 0.5, 1)}
 
 
-def phase_nms(torch, card, layout="vil"):
+def phase_nms(torch, card, layout="vil", a=240):
     """K1 through both entries against their plain versions: 10 streams of
     every kind at the layout's confidence threshold and at 0, all four
-    outputs bit-equal; then the main path's shape (4 seeded streams, the
-    model's softmax scores), timed. Returns the numbers of the main
-    path's shape."""
+    outputs bit-equal; then the main path's shape (4 seeded streams of
+    ``a`` rows, the model's softmax scores; at the prior-propagation
+    head's 244 rows the last 4 of each are dead rows), timed. Returns the
+    numbers of the main path's shape."""
     from phnet_torch.config import LaneSpec
     from phnet_torch.ops import nms as tnms
 
     n_off, top_k, conf, n_len = NMS_LAYOUTS[layout]
-    a, img_w, thresh = 240, 768, 50.0
+    img_w, thresh = 768, 50.0
     spec = LaneSpec(n_offsets=n_off, n_lengths=n_len)
-    tag = "lane_nms" if layout == "vil" else f"lane_nms {layout}"
+    tag = " ".join(["lane_nms"] + [t for t in (
+        layout if layout != "vil" else "", f"R={a}" if a != 240 else "")
+        if t])
     streams = [(kind, seed) for seed, kind in enumerate(NMS_KINDS)]
-    streams += [("seeded", 8), ("seeded", 9)]
+    streams += [("seeded", 9)]
 
     def check(routed, scores, valid, conf):
         got = tnms.nms_keeps(routed, scores, spec, img_w, conf, thresh,
@@ -421,7 +451,8 @@ def phase_nms(torch, card, layout="vil"):
               f"both entries bit-equal to plain in every output; kept "
               f"{num.tolist()}")
 
-    routed = nms_batch(torch, [("seeded", s) for s in range(4)], a, n_off,
+    path_kind = "seeded" if a == 240 else "dead_rows"
+    routed = nms_batch(torch, [(path_kind, s) for s in range(4)], a, n_off,
                        n_lengths=n_len)[0]
     scores = torch.softmax(routed[..., :2], dim=-1)[..., 1]  # a view
     valid = scores >= conf
@@ -693,7 +724,8 @@ def seeded_state_dict(torch, cfg, seed=0):
     the length field (column 5 of the lane vector: VIL's valid length,
     OL's only length) is raised so kept lanes span rows. The single head
     (VIL, OL's ``Router4OL``) keeps its cls outputs in the merged heads'
-    ``out0``, the multi-scale head in ``cls_fir`` / ``cls_sec``."""
+    ``out0`` (the prior-propagation head also in its "_last" stacks'), the
+    multi-scale head in ``cls_fir`` / ``cls_sec``."""
     from phnet_torch.models import PHNet
 
     model = PHNet(cfg.model, device="cpu")
@@ -703,9 +735,11 @@ def seeded_state_dict(torch, cfg, seed=0):
     if cfg.model.head.variant == "multi":
         outs = [(c.out.weight.T, c.out.bias, r.out.bias) for c, r in (
             (head.cls_fir, head.reg_fir), (head.cls_sec, head.reg_sec))]
-    else:
+    else:  # the prior-propagation head's "_last" stacks too
         outs = [(h.out0_kernel, h.out0_bias, h.out1_bias)
-                for h in (head.heads_fir, head.heads_sec)]
+                for h in (head.heads_fir, head.heads_sec,
+                          *(getattr(head, f"heads_{b}_last", None)
+                            for b in ("fir", "sec"))) if h is not None]
     with torch.no_grad():
         for k, cls_bias, reg_bias in outs:  # k: [hidden, 2], a view
             k.copy_(torch.randn(k.shape, generator=g) * 3.0
@@ -862,10 +896,10 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
     a detach and an attach; the kernels' counters are zeroed just before
     and read just after. Every tick must go through K1 once, K2 three
     times a tick where the head has the router chain (the single-scale
-    heads; in its bf16 mode above 8 streams, as the server resolves it,
-    and in its float32 mode otherwise) and never where it has not, and K3
-    once a generator product in w8 and never otherwise. Returns the
-    launches and the tick's numbers."""
+    heads but the prior-propagation one; in its bf16 mode above 8 streams,
+    as the server resolves it, and in its float32 mode otherwise) and
+    never where it has not, and K3 once a generator product in w8 and
+    never otherwise. Returns the launches and the tick's numbers."""
     from phnet_torch.ops import nms as tnms
     from phnet_torch.ops import router_chain as trc
     from phnet_torch.ops import w8_matmul as tw8
@@ -927,9 +961,11 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
                              f"{top_k}, {dim}] / [{streams}, {top_k}]")
     if not torch.isfinite(kept).all():
         raise AssertionError("non-finite kept rows")
-    if not (server.memory.values.isfinite().all()):
+    if not all(x.isfinite().all() for x in server.memory[:-1]
+               if x.is_floating_point()):
         raise AssertionError("non-finite memory")
-    chain_per_tick = 0 if mcfg.head.variant == "multi" else 3
+    propagate = mcfg.head.propagate_priors
+    chain_per_tick = 0 if mcfg.head.variant == "multi" or propagate else 3
     chain_bf16 = server.mcfg.head.router_chain_bf16
     if chain_bf16 != (streams > 8):
         raise AssertionError(f"the server resolved router_chain_bf16 to "
@@ -946,7 +982,9 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
         raise AssertionError(f"w8_matmul launches {k3} over {n_ticks} ticks "
                              f"with quantize={quantize!r}, want {per_tick} "
                              f"a tick")
-    n_kept = int(server.memory.mask[..., :-1].sum())  # not the negatives
+    # not the ring's negatives; all of the one-frame carry's slots
+    n_kept = int((server.memory.mask if propagate
+                  else server.memory.mask[..., :-1]).sum())
     if n_kept == 0:
         raise AssertionError("NMS kept nothing: the smoke weights give the "
                              "kernel no work")
@@ -974,9 +1012,11 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
 
 def phase_end_to_end(torch, card, state_dict, quantize="none",
                      preset="vil100_config", compute_dtype="float32",
-                     chain_bf16=None):
-    """The same weights, a 2-frame clip of the preset, on the card and on
-    the CPU. Float32: routed predictions within 1e-3, keep sets equal.
+                     chain_bf16=None, frames=2):
+    """The same weights, a clip of ``frames`` frames of the preset, on the
+    card and on the CPU. Float32: routed predictions within 1e-3, keep
+    sets equal. With prior propagation the carry must reach a later frame
+    (some slot valid entering it) on both devices.
 
     bf16 (``compute_dtype="bfloat16"``, or the router chain's bf16 mode
     pinned by ``chain_bf16``): the card's cuDNN / cuBLAS products and the
@@ -1017,8 +1057,9 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
         quantize if quantize != "none" else "",
         "bf16" if compute_dtype == "bfloat16" else "",
         "bf16 chain" if chain_bf16 else "") if t])
+    n_frames = frames
     frames = np.random.default_rng(4).normal(
-        size=(1, 2, mcfg.img_h, mcfg.img_w, 3)).astype(np.float32)
+        size=(1, n_frames, mcfg.img_h, mcfg.img_w, 3)).astype(np.float32)
     runs = {"cuda": frames, "cpu": frames}
     if bf16:
         runs["cpu perturbed"] = (frames * (1.0 + 2.0 ** -8 * np.random.default_rng(
@@ -1026,7 +1067,7 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
     elif quantize != "none":
         runs["cpu perturbed"] = (frames * (1.0 + 1e-6 * np.random.default_rng(
             6).normal(size=frames.shape))).astype(np.float32)
-    results = {}
+    results, carried = {}, {}
     for run, clip in runs.items():
         dev = run.split()[0]
         model = PHNet(mcfg, device=dev)
@@ -1036,7 +1077,10 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
             mem = init_memory(mcfg, 1, 2, dev)
             dyn = model.head.combine_dynamic()
             routed, keeps, counts = [], [], []
-            for t in range(2):
+            carried[run] = []  # the carry's valid slots entering a frame
+            for t in range(n_frames):
+                if mcfg.head.propagate_priors:
+                    carried[run].append(int(mem.mask.sum()))
                 out, mem, r = model.frame_step(tuple(f[t] for f in feats),
                                                mem, dyn)
                 routed.append(r.cpu())
@@ -1046,10 +1090,20 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
                         torch.stack(counts))
     (r_gpu, k_gpu, n_gpu), (r_cpu, k_cpu, n_cpu) = results["cuda"], results[
         "cpu"]
+    if mcfg.head.propagate_priors:
+        a = mcfg.head.num_priors
+        for run in ("cuda", "cpu"):
+            if not sum(carried[run][1:]):
+                raise AssertionError(f"{tag} on {run}: the carry never "
+                                     f"propagated (valid slots entering "
+                                     f"each frame {carried[run]})")
+        print(f"[{tag}] carry: valid slots entering each frame, card "
+              f"{carried['cuda']}, CPU {carried['cpu']}; propagated rows "
+              f"kept (card) {int((k_gpu >= a).sum())} [{card}]")
     diff = (r_gpu - r_cpu).abs()
     err = diff.max().item()
     if bf16:
-        return check_bf16_end_to_end(tag, card, results)
+        return check_bf16_end_to_end(tag, card, results, n_frames)
     if quantize == "none":
         if not err <= 1e-3:
             raise AssertionError(f"card vs CPU routed predictions: max "
@@ -1057,7 +1111,7 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
         if not (torch.equal(n_gpu, n_cpu) and torch.equal(k_gpu, k_cpu)):
             raise AssertionError(f"card vs CPU keeps differ: "
                                  f"{k_gpu.tolist()} vs {k_cpu.tolist()}")
-        print(f"[{tag}] 2-frame clip card vs CPU: routed max |diff| "
+        print(f"[{tag}] {n_frames}-frame clip card vs CPU: routed max |diff| "
               f"{err:.3g} (<= 1e-3), num_kept {n_gpu.flatten().tolist()} "
               f"equal, keep sets equal; cuDNN TF32 flag "
               f"{torch.backends.cudnn.allow_tf32} around the model [{card}]")
@@ -1079,8 +1133,8 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
     if not torch.equal(n_gpu, n_cpu):
         raise AssertionError(f"{quantize} card vs CPU num_kept differ: "
                              f"{n_gpu.tolist()} vs {n_cpu.tolist()}")
-    print(f"[{tag}] 2-frame clip card vs CPU: routed |diff| of the lane "
-          f"columns 99th percentile {got['lane'][0]:.3g} (<= 1e-3), max "
+    print(f"[{tag}] {n_frames}-frame clip card vs CPU: routed |diff| of the "
+          f"lane columns 99th percentile {got['lane'][0]:.3g} (<= 1e-3), max "
           f"{got['lane'][1]:.3g} (<= 1e-1); cls logits 99th percentile "
           f"{got['cls'][0]:.3g} (<= 1e-1), max {got['cls'][1]:.3g} (<= 1); "
           f"num_kept {n_gpu.flatten().tolist()} equal; keep sets equal: "
@@ -1095,7 +1149,7 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
 BF16_FLOOR = {"cls": (0.5, 4.0), "lane": (5e-2, 1.0)}  # (p99, max)
 
 
-def check_bf16_end_to_end(tag, card, results):
+def check_bf16_end_to_end(tag, card, results, n_frames=2):
     """phase_end_to_end's bf16 check (see its docstring)."""
     (r_gpu, _, n_gpu), (r_cpu, _, n_cpu), (r_own, _, n_own) = (
         results["cuda"], results["cpu"], results["cpu perturbed"])
@@ -1118,7 +1172,8 @@ def check_bf16_end_to_end(tag, card, results):
                              f"{n_gpu.flatten().tolist()} vs "
                              f"{n_cpu.flatten().tolist()} (the CPU's "
                              f"one-ulp run: {n_own.flatten().tolist()})")
-    print(f"[{tag}] 2-frame clip card vs CPU: routed |diff| lane columns "
+    print(f"[{tag}] {n_frames}-frame clip card vs CPU: routed |diff| lane "
+          f"columns "
           f"99th percentile {got['lane'][0]:.3g}, max {got['lane'][1]:.3g}; "
           f"cls logits {got['cls'][0]:.3g}, {got['cls'][1]:.3g}; the CPU's "
           f"own one-ulp spread: lane {own['lane'][0]:.3g}, "
@@ -1211,6 +1266,22 @@ TRAIN_LEAVES = (  # gradient leaves held card against CPU, one a layer
     "head.dyn_heads.2.gen1_b.weight",
     "head.temporal_decoder.layers.1.ffn2.weight",
     "head.heads_sec.out1_kernel", "head.heads_fir.fc0_kernel")
+# the same for the other OpenLane-V heads: the routers and branch stacks
+# they have in place of the router chain and the merged heads
+HEAD_LEAVES = {
+    "openlane_multiscale_config": TRAIN_LEAVES[:4] + (
+        "encoder.neck.upsample.0.weight", "head.routers.0.conv1.weight",
+        "head.routers.2.out.weight", "head.dyn_heads.1.gen2_a.weight",
+        "head.dyn_heads.2.out_b.weight",
+        "head.temporal_decoder.layers.1.ffn2.weight",
+        "head.reg_sec.out.weight", "head.cls_fir.fc0.weight"),
+    "openlane_propagate_config": TRAIN_LEAVES[:4] + (
+        "head.mlp_routers.0.fc0.weight", "head.mlp_routers.2.out.weight",
+        "head.dyn_heads.1.gen2_a.weight",
+        "head.temporal_decoder.layers.1.ffn2.weight",
+        "head.temporal_decoder_last.layers.0.ffn2.weight",
+        "head.heads_fir_last.fc0_kernel", "head.heads_sec_last.out1_kernel",
+        "head.heads_sec.out1_kernel")}
 PROFILE_RANGES = ("hungarian_assign", "router_chain_backward")
 
 
@@ -1229,6 +1300,15 @@ def train_config(dropout, preset="vil100_config", compute_dtype="float32",
                                        compute_dtype=compute_dtype,
                                        remat_frames=remat),
         train=dataclasses.replace(cfg.train, **train))
+
+
+def chain_per_frame(cfg) -> int:
+    """K2 launches a frame of ``cfg``'s head: one a refine stage where the
+    head routes with the router chain, none for the multi-scale head
+    (Conv1d routers) and the prior-propagation head (per-row MLPs)."""
+    h = cfg.model.head
+    return 0 if h.variant == "multi" or h.propagate_priors else (
+        h.refine_layers)
 
 
 def chain_bf16_in_training(cfg) -> bool:
@@ -1332,15 +1412,15 @@ def phase_train_parity(torch, card, preset="vil100_config",
     the remat recompute, its bf16 mode never. Returns the card's K2
     launches."""
     cfg = train_config(0.0, preset)
+    leaves = HEAD_LEAVES.get(preset, TRAIN_LEAVES)
     frames, labels = synthetic_batch(torch, cfg, 1, frames_per_clip)
     pert = frames * (1.0 + 1e-6 * torch.from_numpy(np.random.default_rng(
         7).normal(size=tuple(frames.shape)).astype(np.float32)))
     t0 = time.perf_counter()
-    card_run = grad_run(torch, cfg, frames, labels, "cuda",
-                        leaves=TRAIN_LEAVES)
-    cpu = grad_run(torch, cfg, frames, labels, "cpu", leaves=TRAIN_LEAVES)
-    cpu_p = grad_run(torch, cfg, pert, labels, "cpu", leaves=TRAIN_LEAVES)
-    want_k2 = (2 * cfg.model.head.refine_layers * frames_per_clip, 0)
+    card_run = grad_run(torch, cfg, frames, labels, "cuda", leaves=leaves)
+    cpu = grad_run(torch, cfg, frames, labels, "cpu", leaves=leaves)
+    cpu_p = grad_run(torch, cfg, pert, labels, "cpu", leaves=leaves)
+    want_k2 = (2 * chain_per_frame(cfg) * frames_per_clip, 0)
     if card_run["k2"] != want_k2:
         raise AssertionError(f"training {preset}: K2 launches (float32, "
                              f"bf16) {card_run['k2']}, want {want_k2}")
@@ -1356,7 +1436,7 @@ def phase_train_parity(torch, card, preset="vil100_config",
                       f"(|diff| {err:.3g}, CPU's own {own:.3g}, bound "
                       f"{bound:.3g})")
     worst = 0.0
-    for name in TRAIN_LEAVES:
+    for name in leaves:
         ref = cpu["grads"][name]
         err = (card_run["grads"][name] - ref).abs().max().item()
         own = (cpu_p["grads"][name] - ref).abs().max().item()
@@ -1375,7 +1455,7 @@ def phase_train_parity(torch, card, preset="vil100_config",
     print(f"[train card vs CPU] {preset}, full width, 1 clip x "
           f"{frames_per_clip} frames, dropout 0, cuDNN TF32 flag "
           f"{torch.backends.cudnn.allow_tf32} around the step: "
-          + "; ".join(report) + f"; {len(TRAIN_LEAVES)} gradient leaves, "
+          + "; ".join(report) + f"; {len(leaves)} gradient leaves, "
           f"worst at {worst:.3f} of its bound; matches differing {flips} of "
           f"{card_run['matched'].numel()} (perturbed CPU {own_flips}); K2 "
           f"launches (float32, bf16) {card_run['k2']}; "
@@ -1395,9 +1475,30 @@ def leaf_group(name):
     parts = name.split(".")
     if parts[0] == "encoder" or parts[1] in (
             "routers", "dyn_heads", "temporal_decoder", "heads_fir",
-            "heads_sec"):
+            "heads_sec", "mlp_routers", "temporal_decoder_last",
+            "heads_fir_last", "heads_sec_last", "cls_fir", "reg_fir",
+            "cls_sec", "reg_sec"):
         return ".".join(parts[:2])
     return "head (anchors, embeddings)"
+
+
+def zero_up_to_rounding(name, grads):
+    """For a gradient leaf that a norm cancels (zero up to rounding), the
+    leaf whose gradient sets its scale, else None: K2's conv biases (its
+    taps; a LayerNorm follows each 3x3); a multi-scale router's conv bias
+    (its weight) where its GroupNorm has one channel a group, which shows
+    in ``grads`` (the CPU's) as a bias gradient under 1e-3 of the
+    weight's."""
+    if name.endswith("conv_bias"):
+        return name[:-len("conv_bias")] + "taps"
+    parts = name.split(".")
+    if (parts[1:2] == ["routers"] and parts[-1] == "bias"
+            and parts[-2].startswith("conv")):
+        weight = name[:-len("bias")] + "weight"
+        if (grads[name].abs().max().item()
+                <= 1e-3 * grads[weight].abs().max().item()):
+            return weight
+    return None
 
 
 def phase_train_parity_bf16(torch, card, preset="vil100_config",
@@ -1437,7 +1538,7 @@ def phase_train_parity_bf16(torch, card, preset="vil100_config",
     no_remat = grad_run(torch, train_config(
         0.0, preset, compute_dtype="bfloat16", chain_f32=chain_f32,
         remat=False), frames, labels, "cuda", pin=pin)
-    steps = 2 * cfg.model.head.refine_layers * frames_per_clip
+    steps = 2 * chain_per_frame(cfg) * frames_per_clip
     want_k2 = (0, steps) if chain_bf16_in_training(cfg) else (steps, 0)
     if card_run["k2"] != want_k2:
         raise AssertionError(f"training {tag} bf16: K2 launches (float32, "
@@ -1457,8 +1558,11 @@ def phase_train_parity_bf16(torch, card, preset="vil100_config",
     groups = {}
     for name, ref in cpu["grads"].items():
         scale = ref.abs().max().item()
-        if name.endswith("conv_bias"):
-            taps = card_run["grads"][name[:-len("conv_bias")] + "taps"]
+        if name.startswith("encoder.backbone.blocks") and not scale:
+            continue  # a stage the multi-scale head does not read
+        sibling = zero_up_to_rounding(name, cpu["grads"])
+        if sibling is not None:
+            taps = card_run["grads"][sibling]
             if not (card_run["grads"][name].abs().max().item()
                     <= 5e-2 * taps.abs().max().item()):
                 raise AssertionError(f"training {tag} bf16: {name} not "
@@ -1559,13 +1663,33 @@ def profile_steps(torch, fn, steps=1, group_of=None):
             "by_name": {k: v / 1e3 / steps for k, v in by_name.items()}}
 
 
+def cuda_kernels(torch, fn):
+    """(launches, device kernel ms) of one fn() call under
+    ``torch.profiler`` with the card's activity alone: no host events to
+    process, a fraction of :func:`profile_steps`' time."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        raise AssertionError("the profiler recorded no kernel of the step")
+    return len(kernels), sum(e.time_range.elapsed_us()
+                             for e in kernels) / 1e3
+
+
 def phase_train_throughput(torch, card, batches=(1, 4), frames_per_clip=16,
-                           warmup=2, timed=5, preset="vil100_config",
-                           compute_dtype="float32", profiled=(1,)):
+                           warmup=1, timed=3, preset="vil100_config",
+                           compute_dtype="float32", counted=(1,)):
     """Training steps of ``preset`` in ``compute_dtype`` on a fixed batch at
-    full width; one step more under ``torch.profiler`` at the batch sizes
-    in ``profiled`` (processing a step's trace takes 70-110 s). Returns
-    the numbers of each batch size."""
+    full width; at the batch sizes in ``counted`` one step more under the
+    profiler of the card's activity alone (:func:`cuda_kernels`: launches
+    and kernel time; the host ranges, the Hungarian solve's and K2's
+    backward, come from ``tools/torch_train_profile.py``, whose trace of
+    a step takes 70-130 s to process). Returns the numbers of each batch
+    size."""
     from phnet_torch.losses import LaneCriterion
     from phnet_torch.ops import nms as tnms
     from phnet_torch.ops import router_chain as trc
@@ -1607,7 +1731,7 @@ def phase_train_throughput(torch, card, batches=(1, 4), frames_per_clip=16,
             if tnms.lane_nms.launches or tw8.w8_matmul.launches:
                 raise AssertionError("a training step launched K1 or K3")
         peak = torch.cuda.max_memory_allocated()
-        n = 2 * cfg.model.head.refine_layers * frames_per_clip
+        n = 2 * chain_per_frame(cfg) * frames_per_clip
         want_k2 = (0, n) if bf16_chain else (n, 0)
         if any(k != want_k2 for k in k2):
             raise AssertionError(f"{tag}: router_chain launches a step "
@@ -1633,28 +1757,15 @@ def phase_train_throughput(torch, card, batches=(1, 4), frames_per_clip=16,
               f"{peak / 2 ** 20:.1f} MiB; router_chain launches a step "
               f"(float32, bf16) {k2[-1]}; losses "
               f"{', '.join(f'{x:.4f}' for x in losses)} [{card}]")
-        if b not in profiled:
-            del state, frames, labels
-            continue
-        t_prof = time.perf_counter()
-        prof = profile_steps(torch, lambda: step(
-            state, frames, labels, step_seed(cfg.train.seed, state.step)))
-        t_prof = time.perf_counter() - t_prof
-        jv, k2b = (prof["ranges"]["hungarian_assign"],
-                   prof["ranges"]["router_chain_backward"])
-        k2_ms = sum(v for k, v in prof["by_name"].items()
-                    if "router_chain" in k.lower())
-        out[b].update({k: prof[k] for k in ("device_ms", "launches",
-                                            "profiled_wall_ms")},
-                      jv=jv, k2_ms=k2_ms, k2_backward=k2b)
-        print(f"[{tag} B={b}] one profiled step: {prof['launches']:.0f} "
-              f"kernel launches, device kernel time {prof['device_ms']:.1f} "
-              f"ms (busy {prof['device_ms'] / p50:.3f} of the unprofiled "
-              f"p50), Hungarian solve {jv['ms']:.2f} ms in "
-              f"{jv['launches']:.0f} launches, K2 {k2_ms:.3f} ms, its "
-              f"backward (the plain chain) {k2b['ms']:.2f} ms in "
-              f"{k2b['launches']:.0f} launches; the profiled step and its "
-              f"trace's processing took {t_prof:.1f} s [{card}]")
+        if b in counted:
+            n_k, k_ms = cuda_kernels(torch, lambda: step(
+                state, frames, labels, step_seed(cfg.train.seed,
+                                                 state.step)))
+            out[b].update(launches=n_k, device_ms=k_ms)
+            print(f"[{tag} B={b}] one step under the profiler (card "
+                  f"activity only): {n_k} kernel launches, device kernel "
+                  f"time {k_ms:.1f} ms (busy {k_ms / p50:.3f} of the "
+                  f"unprofiled p50) [{card}]")
         del state, frames, labels
     return out
 
@@ -1711,30 +1822,32 @@ def phase_trainer(torch, card, frames_per_clip=4):
           f"[{card}]")
 
 
-def phase_trainer_openlane(torch, card, frames_per_clip=4):
-    """``python -m phnet_torch.train.openlane --synthetic`` through its
-    ``main`` (``Router4OL`` in bf16, its default) on one synthetic 4-frame
-    video, one step an epoch: ``epoch_per_test`` epochs (5: the preset
-    saves its first resumable checkpoint there), then resumed for one
-    more. K2's bf16 mode launches 3 times a frame, again in the remat
-    recompute, every step; its float32 instance never."""
-    from phnet_torch.config import openlane_config
+def phase_trainer_openlane(torch, card, frames_per_clip=4, variant="single"):
+    """``python -m phnet_torch.train.openlane --synthetic --variant
+    variant`` through its ``main`` (bf16, its default) on one synthetic
+    video of ``frames_per_clip`` frames, one step an epoch:
+    ``epoch_per_test`` epochs (5: the preset saves its first resumable
+    checkpoint there), then resumed for one more. Where the head has the
+    router chain (``Router4OL``), K2's bf16 mode launches 3 times a frame,
+    again in the remat recompute, every step; its float32 instance never;
+    the other heads launch neither."""
+    from phnet_torch import config
     from phnet_torch.ops import router_chain as trc
     from phnet_torch.train import openlane as cli
 
-    cfg = openlane_config()
+    cfg = getattr(config, cli.VARIANTS[variant])()
     every = cfg.train.epoch_per_test
     t0 = time.perf_counter()
     trc.router_chain.launches = trc.router_chain.launches_bf16 = 0
     with tempfile.TemporaryDirectory() as workdir:
         argv = ["--synthetic", "--frames", str(frames_per_clip),
                 "--synthetic-videos", "1", "--batch", "1", "--workdir",
-                workdir]
+                workdir, "--variant", variant]
         first = cli.main(argv + ["--epochs", str(every)])
         second = cli.main(argv + ["--epochs", str(every + 1), "--resume"])
         files = sorted(os.listdir(workdir))
     k2 = (trc.router_chain.launches, trc.router_chain.launches_bf16)
-    want_k2 = (0, (every + 1) * 2 * cfg.model.head.refine_layers
+    want_k2 = (0, (every + 1) * 2 * chain_per_frame(cfg)
                * frames_per_clip)
     if not (len(first) == every and len(second) == 1
             and np.isfinite(first + second).all()):
@@ -1743,11 +1856,80 @@ def phase_trainer_openlane(torch, card, frames_per_clip=4):
     if f"epoch_{every}.pt" not in files or k2 != want_k2:
         raise AssertionError(f"OL trainer: files {files}, K2 launches "
                              f"(float32, bf16) {k2}, want {want_k2}")
-    print(f"[trainer openlane] python -m phnet_torch.train.openlane "
-          f"--synthetic (Router4OL, bf16), one step an epoch: epoch losses "
+    print(f"[trainer openlane {variant}] python -m phnet_torch.train."
+          f"openlane --synthetic --variant {variant} (bf16), "
+          f"{frames_per_clip}-frame clips, one step an epoch: epoch losses "
           f"{', '.join(f'{x:.4f}' for x in first)}, resumed from epoch "
           f"{every}: {second[0]:.4f}; files {files}; K2 launches (float32, "
           f"bf16) {k2}; {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+PROPAGATE = "openlane_propagate_config"
+MULTISCALE = "openlane_multiscale_config"
+
+
+def phase_propagate(torch, card):
+    """Phases 26-27: ``openlane_propagate_config`` (``Router4OLV3``) served
+    at full width with phase 5's schedule in float32, bf16 and w8 (lane
+    NMS once a tick over the 244 rows, K3 12 times a tick in w8, the
+    router chain never); then a 3-frame clip card against CPU, in float32
+    with cuDNN's TF32 flag on and in bf16, the carry reaching the later
+    frames. Returns ``{(quantize, compute dtype): phase_serving's
+    numbers}``."""
+    state_dict = seeded_state_dict(torch, preset_config(PROPAGATE))
+    out = {}
+    for mode, dtype in (("none", "float32"), ("none", "bfloat16"),
+                        ("w8", "float32")):
+        out[(mode, dtype)] = phase_serving(
+            torch, card, state_dict, mode, preset=PROPAGATE,
+            compute_dtype=dtype)
+    torch.backends.cudnn.allow_tf32 = True  # a user's default
+    try:
+        phase_end_to_end(torch, card, state_dict, preset=PROPAGATE,
+                         frames=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    phase_end_to_end(torch, card, state_dict, preset=PROPAGATE,
+                     compute_dtype="bfloat16", frames=3)
+    return out
+
+
+def phase_multiscale_bf16(torch, card):
+    """Phase 28: ``openlane_multiscale_config(compute_dtype="bfloat16")``
+    (the encoder in bf16, the head in float32) served unquantized and in
+    w8 (K3 13 times a tick, its x float32), then card against CPU.
+    Returns ``{quantize: phase_serving's numbers}``."""
+    state_dict = seeded_state_dict(torch, preset_config(MULTISCALE))
+    out = {mode: phase_serving(torch, card, state_dict, mode,
+                               preset=MULTISCALE, compute_dtype="bfloat16")
+           for mode in ("none", "w8")}
+    phase_end_to_end(torch, card, state_dict, preset=MULTISCALE,
+                     compute_dtype="bfloat16")
+    return out
+
+
+def phase_train_heads(torch, card, frames_per_clip=2):
+    """Phase 29: the multi-scale and prior-propagation heads in training:
+    a step card against CPU in float32 (phase 15, a 2-frame clip) and
+    bf16 (phase 21, 4 frames), cuDNN's TF32 flag on; a timed B=1, T=16 bf16 step of
+    each (its launches and kernel time from one step under the card-only
+    profiler); the OL command line's ``main`` with ``--variant`` to the
+    first resumable checkpoint and a resume. Neither head launches K2.
+    Returns the throughput numbers by preset."""
+    torch.backends.cudnn.allow_tf32 = True  # a user's default
+    try:
+        for preset in (MULTISCALE, PROPAGATE):
+            phase_train_parity(torch, card, preset, frames_per_clip)
+            phase_train_parity_bf16(torch, card, preset)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    out = {preset: phase_train_throughput(
+        torch, card, batches=(1,), timed=2, preset=preset,
+        compute_dtype="bfloat16")[1]
+        for preset in (MULTISCALE, PROPAGATE)}
+    for variant in ("multiscale", "propagate"):
+        phase_trainer_openlane(torch, card, frames_per_clip, variant)
+    return out
 
 
 def main() -> int:
@@ -1810,9 +1992,13 @@ def main() -> int:
     training_bf16 = phase_train_throughput(torch, card,
                                            compute_dtype="bfloat16")
     training_ol = phase_train_throughput(
-        torch, card, batches=(1,), warmup=1, timed=3,
-        preset="openlane_config", compute_dtype="bfloat16", profiled=())
+        torch, card, batches=(1,), preset="openlane_config",
+        compute_dtype="bfloat16", counted=())
     phase_trainer_openlane(torch, card)
+    nms_v3 = phase_nms(torch, card, layout="openlane", a=244)
+    v3 = phase_propagate(torch, card)
+    ms_bf16 = phase_multiscale_bf16(torch, card)
+    train_heads = phase_train_heads(torch, card)
 
     w8_ms_frame = stage_sum(w8_ms, 4, [name for name, _, _ in ms_products])
     single, multi = "openlane_config", "openlane_multiscale_config"
@@ -1822,14 +2008,26 @@ def main() -> int:
                          ol[(multi, "none")]["lane_nms"],
                      "openlane_ms": nms_ol["ms"],
                      "openlane_plain_ms": nms_ol["plain_ms"],
-                     "openlane_bound_ms": nms_ol["bound_ms"]},
+                     "openlane_bound_ms": nms_ol["bound_ms"],
+                     "openlane_propagate_launches":
+                         v3[("none", "float32")]["lane_nms"],
+                     "propagate_rows_ms": nms_v3["ms"],
+                     "propagate_rows_plain_ms": nms_v3["plain_ms"],
+                     "propagate_rows_bound_ms": nms_v3["bound_ms"]},
         "router_chain": {"openlane_launches":
                              ol[(single, "none")]["router_chain"],
                          "openlane_multiscale_launches":
-                             ol[(multi, "none")]["router_chain"]},
+                             ol[(multi, "none")]["router_chain"],
+                         "openlane_propagate_launches":
+                             v3[("none", "float32")]["router_chain"]
+                             + v3[("none", "float32")]["router_chain_bf16"]},
         "w8_matmul": {"openlane_launches": ol[(single, "w8")]["w8_matmul"],
                       "openlane_multiscale_launches":
                           ol[(multi, "w8")]["w8_matmul"],
+                      "openlane_propagate_launches":
+                          v3[("w8", "float32")]["w8_matmul"],
+                      "openlane_multiscale_bf16_launches":
+                          ms_bf16["w8"]["w8_matmul"],
                       "openlane_multiscale_ms": w8_ms_frame["ms"],
                       "openlane_multiscale_library_ms":
                           w8_ms_frame["library_ms"],
@@ -1881,6 +2079,12 @@ def main() -> int:
     kernels[-2]["openlane_training_launches"] = training_ol[1]["k2_launches"]
     kernels[-2]["f32_mode_ms"] = chain_bf16[16]["f32_ms"]
     kernels[-1]["f32x_ms"] = w8_bf16x["f32x_ms"]
+    print(f"[train heads] B=1 T=16 bf16 steps: " + "; ".join(
+        f"{p}: {n['device_ms_p50']:.1f} ms (CUDA events), "
+        f"{n['launches']} launches, busy "
+        f"{n['device_ms'] / n['step_p50_ms']:.3f}, "
+        f"peak {n['peak_mib']:.1f} MiB, wall p50 {n['step_p50_ms']:.1f} ms"
+        for p, n in train_heads.items()) + f" [{card}]")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,25 +2,25 @@
 
 The dataclasses keep the JAX package's field names and defaults for what
 the port runs, so one set of keyword arguments builds the same model in
-both packages: VIL-100 and OpenLane-V inference with both of OpenLane's
-heads (:func:`openlane_config`, the reference's ``Router4OL``, and
-:func:`openlane_multiscale_config`, ``Router4OLV2``), and training of
-VIL-100 and of ``Router4OL`` (:class:`TrainConfig`, :class:`LossConfig`,
+both packages: VIL-100 and OpenLane-V with all three of OpenLane's heads
+(:func:`openlane_config`, the reference's ``Router4OL``;
+:func:`openlane_multiscale_config`, ``Router4OLV2``;
+:func:`openlane_propagate_config`, ``Router4OLV3``), in inference and in
+training (:class:`TrainConfig`, :class:`LossConfig`,
 ``HeadConfig.decoder_dropout`` and ``router_train_chain_f32``,
 ``ModelConfig.train_assigner`` with the Hungarian assigner only, and
 ``ModelConfig.remat_frames``). Fields that only selected TPU formulations
 of the same function (stem packing, router chain layouts and kernels,
 stage-0 hoisting, dual-branch head stacking, remat policies, scan unroll,
-the flat-matrix AdamW) are gone, and so are fields of variants the port
-does not have yet (the dynamic-k assigner, the loaders' settings): an
-unknown keyword fails when the config is built, and a value of a variant
-not yet ported (the prior-propagation head of
-:func:`openlane_propagate_config`, a training assigner other than
-Hungarian, bfloat16 compute in the multi-scale head) fails in
-``__post_init__``; training the multi-scale head raises in the model.
+the flat-matrix AdamW) are gone, and so are fields of what the port does
+not have yet (the dynamic-k assigner, the loaders' settings) and
+``MemoryConfig.slots_per_frame`` (the port derives the slots from
+``max_lanes``): an unknown keyword fails when the config is built, and a
+training assigner other than Hungarian fails in ``__post_init__``.
 ``compute_dtype="bfloat16"`` is the JAX package's mixed precision (its
 headline configuration and its trainers' default), in inference and in
-training.
+training; the multi-scale head reads no compute dtype, as in the JAX
+package, so there only the encoder computes in bf16.
 
 The presets take keyword overrides of :class:`Config`'s fields, as the
 JAX package's do, and also of :class:`ModelConfig`'s, so that
@@ -145,7 +145,8 @@ class HeadConfig:
     # "single" (RouterV4 / Router4OL) or "multi" scale (Router4OLV2:
     # per-stage sample points over per-stage channels)
     variant: str = "single"
-    # Router4OLV3's cross-frame prior propagation: not ported yet
+    # Router4OLV3's cross-frame prior propagation: the kept lanes of frame
+    # t-1 come back as max_lanes extra anchor rows of frame t
     propagate_priors: bool = False
     ms_sample_points: Tuple[int, ...] = (24, 48, 96)
     ms_channels: Tuple[int, ...] = (64, 32, 16)
@@ -172,7 +173,8 @@ class TestParams:
 @dataclass(frozen=True)
 class MemoryConfig:
     """Temporal memory ring ``[B, S, window, max_lanes + 1, 2*hidden]``;
-    ``window <= 0`` sizes the ring to the clip (VIL)."""
+    ``window <= 0`` sizes the ring to the clip (VIL). The prior-propagation
+    head carries one frame of ``max_lanes`` slots instead (window 1)."""
 
     window: int = 5
 
@@ -231,15 +233,9 @@ class ModelConfig:
             raise ValueError(f"train_assigner {self.train_assigner!r} is not "
                              f"ported yet; the port trains with 'hungarian'")
         h = self.head
-        if h.propagate_priors:
-            raise ValueError("the prior-propagation head (Router4OLV3, "
-                             "propagate_priors=True) is not ported yet")
         if h.variant not in ("single", "multi"):
             raise ValueError(f"head variant must be 'single' or 'multi', got "
                              f"{h.variant!r}")
-        if h.variant == "multi" and self.compute_dtype != "float32":
-            raise ValueError("bfloat16 compute of the multi-scale head is not"
-                             " ported yet; it runs compute_dtype='float32'")
         if h.pos_encoding not in ("sine", "learned"):
             raise ValueError(f"pos_encoding must be 'sine' or 'learned', got"
                              f" {h.pos_encoding!r}")
@@ -420,9 +416,10 @@ def openlane_multiscale_config(n_offsets: int = 72, **overrides) -> Config:
 
 def openlane_propagate_config(n_offsets: int = 72, **overrides) -> Config:
     """Prior-propagation OpenLane-V configuration (reference
-    ``Router4OLV3.py``): the OL preset with ``propagate_priors`` and a
-    one-frame memory. The variant is not ported yet, so building it raises
-    ``ValueError``."""
+    ``Router4OLV3.py``): the OL preset with ``propagate_priors``: K =
+    ``max_lanes`` propagated prior slots, "_last" head stacks, per-row MLP
+    routers, a one-frame memory of the kept rows with no mean-negative
+    row."""
     base = openlane_config(n_offsets=n_offsets)
     model = dataclasses.replace(
         base.model,

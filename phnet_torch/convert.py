@@ -4,13 +4,16 @@ to the port's ``state_dict``.
 The tree is nested dicts of numpy arrays (``{"params": ...,
 "batch_stats": ...}``). Module paths are renamed to the port's
 (``BasicBlock_3`` -> ``blocks.3``, ``Norm_1/BatchNorm_0`` -> ``bn1``,
-``dyn_head_0`` -> ``dyn_heads.0``, ``layer1`` -> ``layers.1`` ...) and
-leaves are laid out for PyTorch:
+``dyn_head_0`` -> ``dyn_heads.0``, ``layer1`` -> ``layers.1``, the
+prior-propagation head's ``mlp_router_0`` -> ``mlp_routers.0`` ...; its
+"_last" stacks and decoder keep their names) and leaves are laid out for
+PyTorch:
 
 * Dense / linear ``kernel [in, out]`` -> ``weight [out, in]`` (this covers
   the DynamicConv ``gen1_a .. out_b`` pairs, the router's ``Dense_0/1`` and
   the fused ``qkv`` / ``q`` + ``kv`` attention projections, whose packed
-  output order the port keeps);
+  output order the port keeps, and the MLP routers' ``fc0`` / ``fc1`` /
+  ``out``);
 * conv ``kernel`` HWIO -> ``weight`` OIHW, and a 1-D conv's (the
   multi-scale router's ``conv1`` / ``conv2``) ``[k, in, out]`` -> ``[out,
   in, k]``;

@@ -1,7 +1,8 @@
 """Dual-branch anchor lane head with 3-stage refinement.
 
 Port of ``phnet_tpu/models/head.py::LaneHead`` (the single-scale head of
-VIL-100 and of OpenLane-V's ``Router4OL``: both branch MLP stacks per
+VIL-100 and of OpenLane-V's ``Router4OL``, and the base of the
+prior-propagation head in ``head_v3.py``: both branch MLP stacks per
 stage, no stage-0 hoisting). Per refine stage, coarse FPN level first:
 
 1. pool anchor features along each prior's P sample points (bilinear,
@@ -234,6 +235,11 @@ class AnchorHead(nn.Module):
 
 
 class LaneHead(AnchorHead):
+    # the router chain of each stage (``AdaptiveRouter``); the
+    # prior-propagation head routes with per-row MLPs and has none, as the
+    # JAX package creates no parameters for routers its head never calls
+    chain_routers = True
+
     def __init__(self, cfg: ModelConfig):
         super().__init__(cfg)
         h, spec = cfg.head, cfg.lane
@@ -266,12 +272,13 @@ class LaneHead(AnchorHead):
                            h.router_blocks, dtype=dt,
                            chain_bf16=bool(h.router_chain_bf16),
                            train_chain_f32=h.router_train_chain_f32)
-            for _ in range(h.refine_layers))
+            for _ in range(h.refine_layers if self.chain_routers else 0))
         d = h.fc_hidden_dim
         n_geo = 3 + spec.n_lengths
         # (cls, geometry[, offsets]) output widths
-        out_dims = ((2, n_geo, spec.n_offsets) if h.separate_offset_head
-                    else (2, n_geo + spec.n_offsets))
+        self.out_dims = out_dims = (
+            (2, n_geo, spec.n_offsets) if h.separate_offset_head
+            else (2, n_geo + spec.n_offsets))
         self.heads_fir = MergedBranchHeads(d, out_dims, h.num_fc, dt)
         self.heads_sec = MergedBranchHeads(2 * d, out_dims, h.num_fc, dt)
         self.temporal_decoder = TemporalDecoder(

@@ -2,32 +2,42 @@
 training.
 
 The encoder runs over all clip frames as one batch; the head then runs
-frame by frame in a Python loop, carrying a fixed-shape ring memory of
-positive-lane features ``[B, S, W, L+1, attn_dim]`` with a slot mask.
+frame by frame in a Python loop, carrying a fixed-shape memory from frame
+to frame. Every head of both datasets runs inference and trains, in
+float32 and bfloat16, chosen by ``cfg.head``: VIL-100's and OpenLane-V's
+single-scale ``LaneHead`` (``Router4OL``), the multi-scale
+``MultiScaleLaneHead`` (``Router4OLV2``, ``variant="multi"``) and the
+prior-propagation ``PropagatingLaneHead`` (``Router4OLV3``,
+``propagate_priors``).
+
+The memory. The first two heads carry a ring of positive-lane features
+``[B, S, W, L+1, attn_dim]`` with a slot mask (:class:`MemoryState`);
+the prior-propagation head carries one frame (:class:`V3MemoryState`):
+the query rows of the kept lanes at every stage, their routed predictions
+as the next frame's extra priors, and the slots' validity.
 
 Inference (:meth:`PHNet.forward`, :meth:`PHNet.detect`): each frame's
 routed predictions go through the confidence filter and lane NMS (the CUDA
-kernel on the card), and the kept rows plus one mean-negative row are
-written into the ring.
+kernel on the card; over A + K rows for the prior-propagation head); the
+ring takes the kept rows plus one mean-negative row, the one-frame carry
+the kept rows (the first K keeps) and their routed predictions. With
+``compute_dtype="bfloat16"`` the memory stays float32 and the routed
+predictions that reach lane NMS are float32.
 
-Both OpenLane-V heads run inference: the single-scale ``LaneHead`` with
-OL's options and the multi-scale ``MultiScaleLaneHead``, chosen by
-``cfg.head.variant``. ``compute_dtype="bfloat16"`` runs the single-scale
-head's inference in the JAX package's mixed precision: the memory ring
-stays float32 and the routed predictions that reach lane NMS are float32.
-
-Training (:meth:`PHNet.train_forward`, the model in train mode; VIL-100
-and OpenLane-V's single head ``Router4OL``, in float32 and bfloat16; the
-multi-scale head does not train yet): BatchNorm on batch statistics,
-decoder dropout, and per frame one batched Hungarian solve on the
-detached predictions of both branches and every stage; each stage writes
-the features of its own second-branch matches (the labels' valid column
-marks the slots) into the ring, with their gradient, at ``t % window``
-(VIL's ring holds the clip, OL's wraps every 5 frames). ``remat_frames``
-recomputes each frame's head in the backward; the solve and the memory
-write stay outside the recomputed region. In bfloat16 the head's outputs
-reach the assignment and the criterion in float32, and the ring stays
-float32. Quantized configurations do not train.
+Training (:meth:`PHNet.train_forward`, the model in train mode): BatchNorm
+on batch statistics, decoder dropout, and per frame one batched Hungarian
+solve on the detached predictions of both branches and every stage. The
+ring takes, per stage, the features of that stage's own second-branch
+matches (the labels' valid column marks the slots), with their gradient,
+at ``t % window`` (VIL's ring holds the clip, OL's wraps every 5 frames);
+the one-frame carry takes the last stage's second-branch matches at every
+stage, detached, and their detached predictions, with the labels' valid
+column as its mask. The JAX package clips an unmatched index (-1) to row
+0, and so does the port. ``remat_frames`` recomputes each frame's head in
+the backward; the solve and the memory update stay outside the
+recomputed region. In bfloat16 the head's outputs reach the assignment
+and the criterion in float32, and the memory stays float32. Quantized
+configurations do not train.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from ..ops.nms import nms_keeps
 from .encoder import Encoder
 from .head import HeadOutputs, LaneHead
 from .head_ms import MultiScaleLaneHead
+from .head_v3 import PropagatingLaneHead
 
 
 class MemoryState(NamedTuple):
@@ -78,9 +89,31 @@ def frame_seed(seed: int, frame: int) -> int:
     return (seed * 1_000_003 + frame) % 2 ** 63
 
 
-def init_memory(cfg: ModelConfig, batch: int, window: int,
-                device=None) -> MemoryState:
+class V3MemoryState(NamedTuple):
+    """The prior-propagation head's carry: one frame of kept rows.
+    feat [B, S, K, attn_dim] (their query rows per stage); priors [B, K,
+    dim] (their predictions, the next frame's extra priors); mask [B, K]
+    bool; t: frames seen."""
+
+    feat: torch.Tensor
+    priors: torch.Tensor
+    mask: torch.Tensor
+    t: int
+
+
+def init_memory(cfg: ModelConfig, batch: int, window: int, device=None):
+    """An empty memory: a ring of ``window`` frames (:class:`MemoryState`)
+    or, for the prior-propagation head, an empty one-frame carry
+    (:class:`V3MemoryState`; ``window`` is not read)."""
     h = cfg.head
+    if h.propagate_priors:
+        k = cfg.max_lanes
+        return V3MemoryState(
+            feat=torch.zeros((batch, h.refine_layers, k, h.attn_dim),
+                             device=device),
+            priors=torch.zeros((batch, k, cfg.lane.dim), device=device),
+            mask=torch.zeros((batch, k), dtype=torch.bool, device=device),
+            t=0)
     slots = cfg.max_lanes + 1
     return MemoryState(
         values=torch.zeros((batch, h.refine_layers, window, slots,
@@ -130,13 +163,43 @@ def write_memory(mem: MemoryState, attn_feat: torch.Tensor,
     return MemoryState(values=values, mask=mask, t=mem.t + 1)
 
 
+def carry_rows(mem: V3MemoryState, query_feat: torch.Tensor,
+               rows: torch.Tensor, slot_idx: torch.Tensor,
+               slot_valid: torch.Tensor) -> V3MemoryState:
+    """The next one-frame carry: for each of the K slots (``slot_idx`` [B,
+    K] into the R rows, -1 for none), the query rows of every stage
+    (``query_feat`` [S, B, R, D], zeroed where ``slot_valid`` [B, K] is
+    False) and the prediction ``rows`` [B, R, dim]. An index of -1 reads
+    row 0, as the JAX package's clip makes it."""
+    s, b, r, d = query_feat.shape
+    idx = slot_idx.clamp(0, r - 1)
+    feat = torch.gather(query_feat, 2,
+                        idx[None, :, :, None].expand(s, -1, -1, d))
+    feat = torch.where(slot_valid[None, :, :, None], feat, 0.0)
+    priors = torch.gather(rows, 1, idx[..., None].expand(
+        -1, -1, rows.shape[-1]))
+    return V3MemoryState(feat=feat.transpose(0, 1), priors=priors,
+                         mask=slot_valid, t=mem.t + 1)
+
+
+def head_memory(mem):
+    """The memory as the head reads it: the ring flattened to [B, S, W *
+    (L+1), D] and its mask to [B, W * (L+1)], or the one-frame carry's
+    (feat, priors, mask)."""
+    if isinstance(mem, V3MemoryState):
+        return mem.feat, mem.priors, mem.mask
+    b, s, window, slots = mem.values.shape[:4]
+    return (mem.values.reshape(b, s, window * slots, -1),
+            mem.mask.reshape(b, window * slots))
+
+
 def check_trainable(cfg: ModelConfig):
-    """ValueError for a configuration the port cannot train yet: the
-    multi-scale head (``Router4OLV2``)."""
-    if cfg.head.variant == "multi":
-        raise ValueError("training the multi-scale OpenLane-V head "
-                         "(Router4OLV2) is not ported yet; the port trains "
-                         "VIL-100 and the single head (openlane_config)")
+    """ValueError for a configuration that does not train: a quantized
+    one (``round()`` has no useful gradient)."""
+    if cfg.quantize != "none":
+        raise ValueError(
+            f"quantize={cfg.quantize!r} is inference-only (round() has "
+            f"no useful gradient); train with quantize='none'")
 
 
 class PHNet(nn.Module):
@@ -157,8 +220,12 @@ class PHNet(nn.Module):
         self.cfg = cfg
         with torch.device(dev):
             self.encoder = Encoder(cfg)
-            self.head = (MultiScaleLaneHead(cfg) if cfg.head.variant == "multi"
-                         else LaneHead(cfg))
+            if cfg.head.propagate_priors:
+                self.head = PropagatingLaneHead(cfg)
+            elif cfg.head.variant == "multi":
+                self.head = MultiScaleLaneHead(cfg)
+            else:
+                self.head = LaneHead(cfg)
         self.to(dev)
         self.eval()
 
@@ -189,22 +256,25 @@ class PHNet(nn.Module):
         return kept, keep_idx, num_kept
 
     @full_f32()
-    def frame_step(self, feats, mem: MemoryState, dyn_combined):
-        """One frame: head, routing, keeps, memory write. feats: tuple of
+    def frame_step(self, feats, mem, dyn_combined):
+        """One frame: head, routing, keeps, memory update. feats: tuple of
         [B, h, w, c] levels. Returns (InferFrameOut, new memory, routed
-        predictions [B, A, dim])."""
+        predictions [B, R, dim]; R = A, or A + K with prior
+        propagation)."""
         cfg = self.cfg
-        b, s = feats[0].shape[0], cfg.head.refine_layers
-        window, slots = mem.values.shape[2:4]
-        out = self.head(feats,
-                        mem.values.reshape(b, s, window * slots, -1),
-                        mem.mask.reshape(b, window * slots), dyn_combined)
+        b, k = feats[0].shape[0], cfg.max_lanes
+        out = self.head(feats, *head_memory(mem), dyn_combined)
         routed = route_predictions(cfg, out)
         kept, keep_idx, num_kept = self.nms_keeps(routed)
-        slot_idx = torch.full((b, cfg.max_lanes), -1, dtype=keep_idx.dtype,
+        slot_idx = torch.full((b, k), -1, dtype=keep_idx.dtype,
                               device=keep_idx.device)
-        slot_idx[:, :keep_idx.shape[1]] = keep_idx
-        new_mem = write_memory(mem, out.attn_feat, slot_idx)
+        n = min(keep_idx.shape[1], k)
+        slot_idx[:, :n] = keep_idx[:, :n]
+        if isinstance(mem, V3MemoryState):
+            new_mem = carry_rows(mem, out.query_feat, routed, slot_idx,
+                                 slot_idx >= 0)
+        else:
+            new_mem = write_memory(mem, out.attn_feat, slot_idx)
         out = InferFrameOut(kept=kept, kept_valid=keep_idx >= 0,
                             num_kept=num_kept, keep_idx=keep_idx)
         return out, new_mem, routed
@@ -235,13 +305,14 @@ class PHNet(nn.Module):
                 dyn_combined=None):
         return self.detect(self.encode(frames), initial_memory, dyn_combined)
 
-    def _train_head(self, feats, mem_values, mem_mask, combined, seed):
-        """One frame's head in training; dropout masks from ``seed`` (the
-        same masks again when the backward recomputes the frame)."""
+    def _train_head(self, feats, memory, combined, seed):
+        """One frame's head in training on ``memory`` (:func:`head_memory`);
+        dropout masks from ``seed`` (the same masks again when the backward
+        recomputes the frame)."""
         gen = None
         if seed is not None and self.cfg.head.decoder_dropout > 0.0:
             gen = torch.Generator(device=feats[0].device).manual_seed(seed)
-        return self.head(feats, mem_values, mem_mask, combined, gen)
+        return self.head(feats, *memory, combined, gen)
 
     @full_f32()
     def train_forward(self, frames: torch.Tensor, labels: torch.Tensor,
@@ -252,25 +323,18 @@ class PHNet(nn.Module):
         and, with a ``dropout_seed``, decoder dropout. Returns
         (:class:`TrainFrameOut`, final memory)."""
         cfg = self.cfg
-        if cfg.quantize != "none":
-            raise ValueError(
-                f"quantize={cfg.quantize!r} is inference-only (round() has "
-                f"no useful gradient); train with quantize='none'")
         check_trainable(cfg)
         feats = self.encode(frames)
         t, b = feats[0].shape[:2]
         s, window = cfg.head.refine_layers, (
             cfg.memory.window if cfg.memory.window > 0 else t)
         mem = init_memory(cfg, b, window, frames.device)
-        slots = mem.values.shape[3]
         combined = self.head.combine_dynamic()
         labels_t = labels.transpose(0, 1)
         remat = cfg.remat_frames and torch.is_grad_enabled()
         outs = []
         for i in range(t):
-            args = (tuple(f[i] for f in feats),
-                    mem.values.reshape(b, s, window * slots, -1),
-                    mem.mask.reshape(b, window * slots), combined,
+            args = (tuple(f[i] for f in feats), head_memory(mem), combined,
                     None if dropout_seed is None else frame_seed(
                         dropout_seed, i))
             if remat:
@@ -284,7 +348,12 @@ class PHNet(nn.Module):
             matched = train_assign(cfg, both,
                                    label.expand(2 * s, *label.shape),
                                    valid.expand(2 * s, *valid.shape))
-            mem = write_memory(mem, out.attn_feat, matched[s:], valid)
+            if isinstance(mem, V3MemoryState):
+                mem = carry_rows(mem, out.query_feat.detach(),
+                                 out.pred_sec[-1].detach(), matched[-1],
+                                 valid)
+            else:
+                mem = write_memory(mem, out.attn_feat, matched[s:], valid)
             outs.append(TrainFrameOut(out.pred_fir, out.pred_sec, out.diff,
                                       matched[s:], matched[:s]))
         return TrainFrameOut(*(torch.stack(x) for x in zip(*outs))), mem

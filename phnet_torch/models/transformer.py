@@ -3,7 +3,11 @@
 Port of ``phnet_tpu/models/transformer.py``. The memory is a fixed-shape
 [B, M, D] bank with a key mask; masked logits are set to -1e9 (not -inf,
 so an all-masked row stays finite), and rows of a stream with no valid
-memory pass ``tgt`` through unchanged after the final norm. Projections
+memory pass ``tgt`` through unchanged after the final norm. An optional
+``tgt_mask`` [B, Nt] marks the target rows valid as self-attention keys
+(the prior-propagation head's empty slots are not; where every slot is
+empty, every key is masked and the -1e9 logits give a uniform softmax).
+Projections
 are fused per source (``qkv`` for self-attention, ``q`` + ``kv`` for
 cross-attention); LayerNorms use flax's epsilon 1e-6 and the FFN the tanh
 GELU of ``flax.linen.gelu``.
@@ -119,15 +123,18 @@ class DecoderLayer(nn.Module):
         self.ffn2 = nn.Linear(ffn_dim, dim)
 
     def forward(self, tgt, memory, memory_mask,
-                gen: Optional[torch.Generator] = None):
-        """``gen``: the dropout masks' generator (train mode only)."""
+                gen: Optional[torch.Generator] = None,
+                tgt_mask: Optional[torch.Tensor] = None):
+        """``gen``: the dropout masks' generator (train mode only);
+        ``tgt_mask`` [B, Nt] bool: the target rows valid as self-attention
+        keys (None: all)."""
         p = self.rate
         gen = gen if self.training else None
 
         def norm(x, ln):  # flax LayerNorm() has no dtype: float32 out
             return cast(layer_norm(x, ln, widen_to(self.dtype)), self.dtype)
 
-        sa = self.self_attn(norm(tgt, self.norm1), None, None, p, gen)
+        sa = self.self_attn(norm(tgt, self.norm1), None, tgt_mask, p, gen)
         tgt = tgt + dropout(sa, p, gen)
         ca = self.cross_attn(norm(tgt, self.norm2), memory, memory_mask, p,
                              gen)
@@ -159,12 +166,15 @@ class TemporalDecoder(nn.Module):
                 m.bias.data.zero_()
 
     def forward(self, tgt, memory, memory_mask,
-                gen: Optional[torch.Generator] = None):
+                gen: Optional[torch.Generator] = None,
+                tgt_mask: Optional[torch.Tensor] = None):
         """tgt [B, A, D]; memory [B, M, D]; memory_mask [B, M] bool;
-        ``gen``: the dropout masks' generator (train mode only)."""
+        ``gen``: the dropout masks' generator (train mode only);
+        ``tgt_mask`` [B, A] bool: the rows of tgt valid as self-attention
+        keys (None: all)."""
         x, memory = cast(tgt, self.dtype), cast(memory, self.dtype)
         for layer in self.layers:
-            x = layer(x, memory, memory_mask, gen)
+            x = layer(x, memory, memory_mask, gen, tgt_mask)
         x = layer_norm(x, self.final_norm, widen_to(self.dtype))
         has_memory = memory_mask.any(dim=-1)
         return torch.where(has_memory[:, None, None], x, tgt)

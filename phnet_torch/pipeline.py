@@ -3,9 +3,10 @@
 Port of ``phnet_tpu/pipeline.py`` (reference ``testVIL.py:72-130``: whole
 video per call; ``testOLV3.py:95-121``: 16-frame chunks). A video runs in
 chunks of ``chunk`` frames through :class:`phnet_torch.models.PHNet`, the
-last chunk padded by repeating the last frame, with the temporal memory
-carried across chunks (``reset_memory_per_chunk=True`` resets it at every
-chunk, the reference's OL behaviour). The DynamicConv combines (quantized
+last chunk padded by repeating the last frame, with the temporal memory (the
+ring, or the prior-propagation head's one-frame carry) carried across
+chunks (``reset_memory_per_chunk=True`` resets it at every chunk, the
+reference's OL behaviour). The DynamicConv combines (quantized
 when the config asks for it, in the compute dtype) are built once per
 weight set. The router chain's mode is the config's
 (``router_chain_bf16``, None meaning off): the JAX pipeline does not

@@ -5,11 +5,14 @@ Up to ``max_streams`` live videos share one batched frame step per tick;
 each stream has its own rows of the temporal memory ring, so attaching or
 detaching a stream is a masked write. The ring holds the config's window
 (OpenLane-V: 5 frames, so it wraps during a stream) or, where that is
-unbounded (VIL-100), ``DEFAULT_WINDOW`` frames; every preset of
-``phnet_torch.config`` serves, both OpenLane-V heads included. A
-persistent device frame buffer receives only the frames that arrived this
-tick; a stream that skips a tick keeps its pre-step memory rows, and the
-ring slot written this tick becomes a hole (masked) for it.
+unbounded (VIL-100), ``DEFAULT_WINDOW`` frames; the prior-propagation
+head (``openlane_propagate_config``) carries one frame of kept rows
+instead. Every preset of ``phnet_torch.config`` serves. A persistent
+device frame buffer receives only the frames that arrived this tick; a
+stream that skips a tick keeps its pre-step memory rows (for the ring,
+the slot written this tick becomes a hole, masked, for it; the one-frame
+carry is kept whole), and attaching or detaching a stream clears its
+slots' mask in either layout.
 
 Above :data:`CHAIN_BF16_ABOVE` streams the router chain runs in its bf16
 mode, as the JAX server's does (``router_chain_bf16=None`` resolves to
@@ -31,7 +34,7 @@ import torch
 from .config import Config
 from .device import resolve_device
 from .geometry import Lane, decode_kept_rows
-from .models.phnet import MemoryState, PHNet, init_memory
+from .models.phnet import MemoryState, PHNet, V3MemoryState, init_memory
 
 DEFAULT_WINDOW = 64  # ring frames when the config's window is unbounded
 CHAIN_BF16_ABOVE = 8  # streams past which the router chain goes bf16
@@ -132,15 +135,7 @@ class StreamingServer:
         mem = self.memory
         outs, new = self.model(self._frames, initial_memory=mem,
                                dyn_combined=self._dyn)
-        # streams with no new frame keep their pre-step rows; the slot
-        # written this tick is a hole for them (the counter still advances)
-        pos = mem.t % self.window
-        values, mask = new.values, new.mask  # fresh tensors, ours to edit
-        values[:, :, pos] = torch.where(row_mask[:, None, None, None],
-                                        values[:, :, pos],
-                                        mem.values[:, :, pos])
-        mask[:, pos] &= row_mask[:, None]
-        self.memory = MemoryState(values=values, mask=mask, t=new.t)
+        self.memory = self._keep_skipped(mem, new, row_mask)
 
         self._tick_wall.append(time.perf_counter() - t0)
         self._n_ticks += 1
@@ -148,6 +143,27 @@ class StreamingServer:
         for sid in sids:
             self._frames_per_stream[sid] += 1
         return outs.kept[0], outs.kept_valid[0], sids
+
+    def _keep_skipped(self, mem, new, row_mask):
+        """The memory after a tick: streams with no new frame keep their
+        pre-step rows (the counter still advances). In the ring the slot
+        written this tick is a hole for them; the one-frame carry is kept
+        whole, as the JAX server's ``sel(new, old)`` keeps it."""
+        if isinstance(new, V3MemoryState):
+            def keep(n, o):
+                m = row_mask.reshape((-1,) + (1,) * (n.dim() - 1))
+                return torch.where(m, n, o)
+
+            return V3MemoryState(feat=keep(new.feat, mem.feat),
+                                 priors=keep(new.priors, mem.priors),
+                                 mask=keep(new.mask, mem.mask), t=new.t)
+        pos = mem.t % self.window
+        values, mask = new.values, new.mask  # fresh tensors, ours to edit
+        values[:, :, pos] = torch.where(row_mask[:, None, None, None],
+                                        values[:, :, pos],
+                                        mem.values[:, :, pos])
+        mask[:, pos] &= row_mask[:, None]
+        return MemoryState(values=values, mask=mask, t=new.t)
 
     def stats(self) -> Dict:
         """Lifetime tick/frame counters, per-stream frames, and

@@ -2,14 +2,15 @@
 ``train_ol.py`` the port has):
 
     python -m phnet_torch.train.openlane --synthetic --epochs 2 \\
-        --frames 4 --workdir models/openlane_torch
+        --frames 4 --workdir models/openlane_torch [--variant propagate]
 
-``--variant single`` (the default) trains ``Router4OL``
-(:func:`~phnet_torch.config.openlane_config` with ``--n-offsets``), in
-bfloat16 unless ``--fp32``, on one card (``--device cpu`` for the CPU).
-The multi-scale (``Router4OLV2``) and prior-propagation (``Router4OLV3``)
-variants, training on OpenLane-V itself and runs over several devices
-are not ported yet and exit with a message saying so.
+``--variant`` picks the head, as ``train_ol.py`` does: ``single`` (the
+default, ``Router4OL``: :func:`~phnet_torch.config.openlane_config`),
+``multiscale`` (``Router4OLV2``: ``openlane_multiscale_config``) or
+``propagate`` (``Router4OLV3``: ``openlane_propagate_config``), each with
+``--n-offsets``, in bfloat16 unless ``--fp32``, on one card (``--device
+cpu`` for the CPU). Training on OpenLane-V itself and runs over several
+devices are not ported yet and exit with a message saying so.
 """
 
 from __future__ import annotations
@@ -30,22 +31,19 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                        "models/OpenLane")
     ap.add_argument("--n-offsets", type=int, default=72)
     ap.add_argument("--variant", choices=tuple(VARIANTS), default="single",
-                    help="head variant: single (Router4OL); multiscale "
-                         "(Router4OLV2) and propagate (Router4OLV3) are "
-                         "not ported yet")
+                    help="head variant: single (Router4OL), multiscale "
+                         "(Router4OLV2), propagate (Router4OLV3 cross-frame "
+                         "prior propagation)")
     return ap.parse_args(argv)
 
 
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
-    if args.variant != "single":
-        raise SystemExit(f"{PROG}: --variant {args.variant} "
-                         f"({VARIANTS[args.variant]}) training is not ported "
-                         "yet; the port trains --variant single")
     check_common(args, PROG, "OpenLane-V")
-    from ..config import openlane_config
+    from .. import config
 
-    return run(openlane_config(n_offsets=args.n_offsets), args)
+    make_cfg = getattr(config, VARIANTS[args.variant])
+    return run(make_cfg(n_offsets=args.n_offsets), args)
 
 
 if __name__ == "__main__":

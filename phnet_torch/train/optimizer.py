@@ -82,7 +82,13 @@ class Optimizer:
     def step(self) -> torch.Tensor:
         """One update from the parameters' ``.grad``; returns the global
         norm of the gradient the update used (after the clip, as the JAX
-        package's fused AdamW reports it)."""
+        package's fused AdamW reports it). A parameter the loss does not
+        reach (the multi-scale model's unused last backbone stage) takes a
+        zero gradient: the JAX package's update sees zeros there, and its
+        weight decay still moves the parameter."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
         norm = global_norm(grads)
         if self.clip > 0:

@@ -74,7 +74,7 @@ def train(cfg: Config, dataset, loader, workdir: str,
           ) -> Tuple[TrainState, List[float]]:
     """Train ``cfg`` on ``loader``'s batches of ``dataset`` into
     ``workdir``. Returns the final state and each epoch's mean loss. A
-    configuration the port cannot train (the multi-scale head) raises
+    configuration that does not train (a quantized one) raises
     ValueError before anything is built."""
     check_trainable(cfg.model)
     tcfg = cfg.train

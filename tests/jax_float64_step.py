@@ -4,7 +4,7 @@ float32 training-step tests measure both packages against.
     python tests/jax_float64_step.py ol OUT.npz
 
 runs ``torch_train_parity``'s float32 problem of the preset ("vil" or
-"ol") through ``jax_step`` with 64-bit types enabled and every float32
+"vil", "ol", "ms" or "v3") through ``jax_step`` with 64-bit types enabled and every float32
 type the package names widened to float64: ``jnp.float32`` is rebound to
 ``jnp.float64`` before ``phnet_tpu`` (and flax) is imported, so module
 defaults and casts take float64 too. No file of the package changes.

@@ -125,11 +125,20 @@ def spread(got, ref):
 # -- configuration --------------------------------------------------------
 
 def test_compute_dtype_is_checked():
+    """An unknown compute dtype fails; every preset builds in bf16 (the
+    multi-scale one too, whose head reads no compute dtype), its fields
+    those of the float32 preset and of the JAX preset but for the dtype;
+    the router chain's bf16 flag stays None (the server decides)."""
     with pytest.raises(ValueError, match="compute_dtype"):
         dataclasses.replace(tp.torch_cfg(), compute_dtype="float16")
-    with pytest.raises(ValueError, match="multi-scale"):
-        tcfg.openlane_multiscale_config(compute_dtype="bfloat16")
-    for preset in ("vil100_config", "openlane_config"):
+    ms = tcfg.openlane_multiscale_config(compute_dtype="bfloat16").model
+    ref = jcfg.openlane_multiscale_config().model
+    assert ms.compute_dtype == "bfloat16"
+    tp.check_fields(ms, dataclasses.replace(ref, compute_dtype="bfloat16"),
+                    differ={"model.head.dyn_param_reduction": 4})
+    for preset in ("vil100_config", "openlane_config",
+                   "openlane_multiscale_config",
+                   "openlane_propagate_config"):
         got = getattr(tcfg, preset)(compute_dtype="bfloat16")
         ref = getattr(jcfg, preset)()
         assert got.model.compute_dtype == "bfloat16"
@@ -137,27 +146,6 @@ def test_compute_dtype_is_checked():
             getattr(tcfg, preset)().model)
         assert ref.model.head.router_chain_bf16 is None
         assert got.model.head.router_chain_bf16 is None
-
-
-def test_bf16_training_is_refused(tmp_path):
-    """bf16 where the port has not ported it refuses clearly: the
-    multi-scale head in bf16 when its config is built, and its training
-    (in either dtype) in the training forward and the trainer. VIL and
-    ``Router4OL`` train in bf16 (``test_torch_train_bf16.py``,
-    ``test_torch_train_ol_bf16.py``)."""
-    from phnet_torch.train.trainer import train
-
-    with pytest.raises(ValueError, match="bfloat16 compute of the "
-                                         "multi-scale head"):
-        dataclasses.replace(tp.small_ms_cfg(tcfg), compute_dtype="bfloat16")
-    mc = tp.small_ms_cfg(tcfg)
-    tm = tp.torch_model(mc, tp.init_variables(tp.small_ms_cfg(jcfg), 0))
-    tm.train()
-    with pytest.raises(ValueError, match="multi-scale.*not ported yet"):
-        tm.train_forward(torch.zeros((1, 1, 96, 192, 3)),
-                         torch.zeros((1, 1, 4, mc.lane.dim)))
-    with pytest.raises(ValueError, match="multi-scale.*not ported yet"):
-        train(tcfg.Config(model=mc), None, None, str(tmp_path))
 
 
 def test_bridge_needs_no_change(weights):
@@ -491,14 +479,14 @@ def robust_slots(runs):
     return robust
 
 
-def check_against(ref, runs):
+def check_against(ref, runs, robust_min=ROBUST_MIN):
     """runs: the port's (num_kept [T, B], kept rows [T, B, K, dim], memory
     or None) for :func:`ulp_copies` of the frames. Holds the first to
     ``ref`` on the slots robust in both packages (see the module
-    docstring)."""
+    docstring), at least ``robust_min`` of them."""
     counts, rows, memory = runs[0]
     robust = robust_slots(runs) & ref["robust"]
-    assert robust.mean() >= ROBUST_MIN, robust
+    assert robust.mean() >= robust_min, robust
     np.testing.assert_array_equal(counts[robust], ref["num_kept"][robust])
     assert int(counts[robust].sum()) > 0
     assert np.abs(rows - ref["kept"])[robust].max() <= KEPT_ATOL

@@ -128,6 +128,17 @@ def test_nms_keeps_kernel_bit_equal_to_plain_at_openlane_shape(
                     top_k=4)
 
 
+@pytest.mark.parametrize("conf", [0.5, 0.0])
+@pytest.mark.parametrize("streams", [1, 4])
+def test_nms_keeps_kernel_bit_equal_to_plain_at_propagate_shape(
+        cuda, streams, conf):
+    """As above at ``openlane_propagate_config``'s shape: 244 rows (240
+    anchors and the K = 4 propagated slots, a partial last warp; the
+    first stream's last 4 rows dead rows, cls [20, -20] and xs -2), OL's
+    lane layout, top_k 4."""
+    check_nms_keeps(cuda, streams, 244, 72, 8, conf, n_lengths=1, top_k=4)
+
+
 def test_nms_keeps_kernel_in_cuda_graph(cuda):
     """The call captured in a CUDA graph: replayed on the captured inputs,
     and on new inputs copied into them, it equals the eager call."""

@@ -374,3 +374,93 @@ def test_convert_round_trip():
     assert mapping["head.routers.0.conv1.weight"][1] == (32, 64, 3)
     assert mapping["encoder.neck.upsample.1.weight"][1] == (32, 64, 1, 1)
     assert mapping["head.reg_sec.out.weight"][1] == (76, 256)
+
+
+# -- bf16 (the JAX package's compute_dtype="bfloat16") ----------------------
+
+@pytest.fixture(scope="module")
+def bf16_levels(setup):
+    """The encoder's levels in bf16, the JAX side compiled without XLA's
+    excess precision (``test_torch_bf16.exact_jit``)."""
+    from test_torch_bf16 import exact_jit
+
+    jc, tc, variables, _ = setup
+    jc, tc = (dataclasses.replace(c, compute_dtype="bfloat16")
+              for c in (jc, tc))
+    frames = tp.seeded_frames(1, (B, 1) + FRAME)
+    jm = JaxPHNet(jc)
+    ref = exact_jit(lambda v, f: jm.apply(v, f, method=jm.encode))(
+        tp.jax_tree(variables), jnp.asarray(frames))
+    with torch.no_grad():
+        got = tp.torch_model(tc, variables).encode(torch.from_numpy(frames))
+    return got, ref
+
+
+@pytest.mark.parametrize("level", range(3))
+def test_bf16_encoder_levels_bit_equal(bf16_levels, level):
+    """The per-level FPN (widths 4, 8, 16 and the 1x1 projections) in
+    bf16 with PR 10's rounding order: each level float32 out, bf16 values,
+    bit-equal to the JAX package's."""
+    got, ref = bf16_levels
+    g, r = tp.to_np(got[level]), np.asarray(ref[level])
+    assert got[level].dtype == torch.float32 and g.shape == r.shape
+    assert torch.equal(got[level], got[level].bfloat16().float())
+    np.testing.assert_array_equal(g, r)
+
+
+def test_bf16_head_computes_in_float32(setup):
+    """The multi-scale head reads no compute dtype (as
+    ``phnet_tpu/models/head_ms.py``): in a bf16 model only the encoder
+    casts; the head's modules, its outputs and the memory are float32,
+    and on equal features its outputs equal the float32 model's."""
+    _, tc, variables, tm = setup
+    bf = tp.torch_model(dataclasses.replace(tc, compute_dtype="bfloat16"),
+                        variables)
+    assert bf.encoder.dtype == torch.bfloat16
+    assert all(getattr(m, "dtype", None) is None
+               for m in bf.head.modules())
+    rng = np.random.default_rng(8)
+    feats = tuple(torch.from_numpy(rng.normal(size=(B, 24 >> s, 48 >> s,
+                                                    4 << s)).astype(
+        np.float32)) for s in range(3))
+    mem = torch.from_numpy(rng.normal(size=(B, 3, 6, 32)).astype(np.float32))
+    mask = torch.from_numpy(rng.uniform(size=(B, 6)) < 0.5)
+    with torch.no_grad():
+        got, ref = bf.head(feats, mem, mask), tm.head(feats, mem, mask)
+    for name in HEAD_OUTPUTS:
+        assert getattr(got, name).dtype == torch.float32
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+def test_bf16_clip_matches_jax(setup):
+    """``PHNet.forward`` in bf16 over a 3-frame clip of 4 streams against
+    the ``exact_jit`` JAX clip, by the one-ulp method of
+    ``test_torch_bf16.py``: keep counts and kept rows on the robust slots,
+    the memory on the robust streams. A quarter of the slots at least
+    are robust (measured 3 of 12 in each package: the head's hard routing
+    switches an anchor's branch whole under one-ulp noise, which moves its
+    kept row past ``KEPT_ATOL`` while the keep count stays)."""
+    import test_torch_bf16 as tb
+
+    jc, tc, variables, _ = setup
+    jc, tc = (dataclasses.replace(c, compute_dtype="bfloat16")
+              for c in (jc, tc))
+    frames = tp.seeded_frames(1, (4, tb.T) + FRAME)
+    jm = JaxPHNet(jc)
+    jclip = tb.exact_jit(lambda v, f: jm.apply(v, f, None, train=False))
+    tm = tp.torch_model(tc, variables)
+    jax_runs, port_runs = [], []
+    for copy in tb.ulp_copies(frames):
+        out, mem = jclip(tp.jax_tree(variables), jnp.asarray(copy))
+        jax_runs.append((np.asarray(out.num_kept),
+                         tb.masked_rows(out.kept, out.kept_valid),
+                         np.asarray(mem.values)))
+        with torch.no_grad():
+            out, mem = tm(torch.from_numpy(copy))
+        assert out.kept.dtype == mem.values.dtype == torch.float32
+        port_runs.append((tp.to_np(out.num_kept),
+                          tb.masked_rows(out.kept, out.kept_valid),
+                          tp.to_np(mem.values)))
+    ref = {"num_kept": jax_runs[0][0], "kept": jax_runs[0][1],
+           "memory": jax_runs[0][2], "robust": tb.robust_slots(jax_runs)}
+    tb.check_against(ref, port_runs, robust_min=0.25)

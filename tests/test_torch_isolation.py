@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from phnet_torch.config import (openlane_config, openlane_multiscale_config,
+                                openlane_propagate_config,
                                 vil100_config)
 from phnet_torch.models import PHNet
 from phnet_torch.pipeline import InferencePipeline
@@ -52,7 +53,8 @@ def test_port_sources_exist():
             "phnet_torch/train/cli.py", "phnet_torch/train/openlane.py",
             "phnet_torch/data/synthetic.py", "phnet_torch/data/loader.py",
             "tools/torch_train_profile.py", "phnet_torch/models/head_ms.py",
-            "phnet_torch/ops/sampler.py"} <= names
+            "phnet_torch/ops/sampler.py", "phnet_torch/models/head_v3.py",
+            "tools/torch_serving_profile.py"} <= names
     assert (REPO / "phnet_torch" / "csrc" / "w8_matmul.cu").is_file()
 
 
@@ -80,7 +82,8 @@ def test_entry_points_default_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("preset", [openlane_config,
-                                    openlane_multiscale_config],
+                                    openlane_multiscale_config,
+                                    openlane_propagate_config],
                          ids=lambda f: f.__name__)
 def test_openlane_entry_points_default_to_the_card(preset):
     if torch.cuda.is_available():
@@ -92,3 +95,27 @@ def test_openlane_entry_points_default_to_the_card(preset):
         PHNet(cfg.model)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferencePipeline(cfg, {})
+
+
+@pytest.mark.parametrize("preset", [openlane_multiscale_config,
+                                    openlane_propagate_config],
+                         ids=lambda f: f.__name__)
+def test_openlane_training_defaults_to_the_card(preset, tmp_path):
+    """The multi-scale and prior-propagation heads' training entry points
+    (the train state, ``train()``, the OL command line) run on the card
+    unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from phnet_torch.train import openlane as ol_cli
+
+    cfg = preset()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(cfg, 10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(cfg, None, [], str(tmp_path))
+    variant = {openlane_multiscale_config: "multiscale",
+               openlane_propagate_config: "propagate"}[preset]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ol_cli.main(["--synthetic", "--variant", variant, "--epochs", "1",
+                     "--synthetic-videos", "1", "--frames", "1",
+                     "--workdir", str(tmp_path)])

@@ -85,6 +85,9 @@ CASES.update({kind: (kind, 3, 240, 36, TOP_K, 2)
 CASES["runtime_shape"] = ("seeded", 8, 32, 12, TOP_K, 2)
 CASES.update({f"ol_{kind}": (kind, 11, 240, 72, OL_TOP_K, 1)
               for kind in chip_smoke.NMS_KINDS})
+# the prior-propagation head's rows: 240 anchors and K = 4 slots, empty
+# slots dead rows (a partial last warp on the card)
+CASES["propagate_rows"] = ("dead_rows", 12, 244, 72, OL_TOP_K, 1)
 
 
 def case(name):

@@ -6,7 +6,8 @@ top_k 4, a window of 2 frames): the presets, the learned embedding, the
 merged heads with their offset head, one head frame with memory, a clip
 longer than the window through ``detect``, the quantized clips, the
 server, the pipeline, the OL ``.lines.txt`` emitter and the parameter
-bridge of the full-width preset.
+bridge of the full-width preset; and the presets of all three OpenLane-V
+heads.
 
 Tolerances, and why: float32 outputs within 1e-4 and keep sets equal (the
 two packages sum in other orders; ``tests/test_torch_serving.py``'s
@@ -65,69 +66,25 @@ def setup():
 
 
 @pytest.mark.parametrize("preset", ["vil100_config", "openlane_config",
-                                    "openlane_multiscale_config"])
+                                    "openlane_multiscale_config",
+                                    "openlane_propagate_config"])
 def test_preset_matches_jax(preset):
     """Every field the port's preset has equals the JAX preset's, but for
     the multi-scale preset's ``head.dyn_param_reduction``: the port's head
     reads it, so the preset states the 4 that the JAX package's head fixes
     in code (``phnet_tpu/models/head_ms.py``) beside its unread 8. Among
     them the compute dtype and the router chain's bf16 flag (None: the
-    server decides)."""
+    server decides), and the prior-propagation preset's
+    ``propagate_priors`` and one-frame memory."""
     # the port's value where the JAX preset's field is not the one that runs
     read_here = ({"model.head.dyn_param_reduction": 4}
                  if preset == "openlane_multiscale_config" else {})
-
-    def fields(x):
-        return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
-
-    def compare(got, ref, where):
-        for name, value in fields(got).items():
-            want = getattr(ref, name)
-            if dataclasses.is_dataclass(value):
-                compare(value, want, f"{where}.{name}")
-            elif f"{where}.{name}" in read_here:
-                assert value == read_here[f"{where}.{name}"] != want
-            else:
-                assert value == want, f"{where}.{name}"
-
     got, ref = getattr(tcfg, preset)(), getattr(jcfg, preset)()
-    compare(got.model, ref.model, "model")
+    tp.check_fields(got.model, ref.model, "model", read_here)
     assert (got.model.compute_dtype, got.model.head.router_chain_bf16) == (
         ref.model.compute_dtype, ref.model.head.router_chain_bf16)
-    compare(got.train.loss, ref.train.loss, "train.loss")
+    tp.check_fields(got.train.loss, ref.train.loss, "train.loss")
     assert got.model.head.attn_dim == ref.model.head.attn_dim
-
-
-def test_propagate_preset_is_refused():
-    with pytest.raises(ValueError, match="not ported"):
-        tcfg.openlane_propagate_config()
-
-
-def test_openlane_training_is_refused(tmp_path):
-    """OpenLane-V training of the variants the port has not ported yet
-    refuses clearly: the multi-scale head (``Router4OLV2``) in the training
-    forward and the trainer, the prior-propagation preset when it is
-    built, and both through the OL command line (``--variant multiscale``
-    and ``--variant propagate``). ``Router4OL`` trains
-    (``test_torch_train_ol.py``)."""
-    from phnet_torch.train import openlane as ol_cli
-    from phnet_torch.train.trainer import train
-
-    mc = tp.small_ms_cfg(tcfg)
-    tm = tp.torch_model(mc, tp.init_variables(tp.small_ms_cfg(jcfg), 0))
-    tm.train()
-    with pytest.raises(ValueError, match="multi-scale.*not ported yet"):
-        tm.train_forward(torch.zeros((1, 1) + FRAME),
-                         torch.zeros((1, 1, 4, mc.lane.dim)))
-    with pytest.raises(ValueError, match="multi-scale.*not ported yet"):
-        train(tcfg.Config(model=mc), None, None, str(tmp_path))
-    with pytest.raises(ValueError, match="not ported"):
-        tcfg.openlane_propagate_config()
-    for variant in ("multiscale", "propagate"):
-        with pytest.raises(SystemExit, match=f"--variant {variant}.*not "
-                                             "ported yet"):
-            ol_cli.main(["--synthetic", "--variant", variant,
-                         "--device", "cpu"])
 
 
 def test_learned_embedding(setup):

@@ -47,6 +47,7 @@ import torch
 import phnet_torch.config as tcfgmod
 import phnet_tpu.config as jcfgmod
 import torch_parity as tp
+from torch_train_parity import leaf_tolerance
 from phnet_torch.convert import convert
 from phnet_torch.losses.criterion import LaneCriterion as TorchCriterion
 from phnet_torch.models import PHNet as TorchPHNet
@@ -167,11 +168,6 @@ def test_grad_norm_matches(run):
     ref, got, _ = run
     norm = np.sqrt(sum((g ** 2).sum() for g in got["grads"].values()))
     assert abs(norm - ref["grad_norm"]) <= 1e-4 * ref["grad_norm"]
-
-
-def leaf_tolerance(name: str) -> float:
-    chain = name.endswith(".taps") or name.endswith(".ln_params")
-    return 3e-2 if ".routers." in name and chain else 3e-3
 
 
 @pytest.mark.parametrize("name", leaf_names())

@@ -8,8 +8,9 @@ swapped for the small configurations of ``torch_parity`` (their training
 settings kept), so that an epoch of 2 clips of 2 frames takes seconds.
 Each run must train the compute dtype the flags ask for (bfloat16 unless
 ``--fp32``, as ``train_vil.py`` and ``train_ol.py``) and the variant
-(``Router4OL`` for OpenLane-V), write its log and checkpoints, and end
-with finite epoch losses.
+(OpenLane-V's ``--variant single``, ``multiscale`` or ``propagate``),
+write its log and checkpoints, resume, and end with finite epoch losses.
+What the port does not train yet refuses clearly.
 """
 
 import dataclasses
@@ -54,6 +55,14 @@ def trained(monkeypatch):
         return small(real_ol(n_offsets), tp.small_ol_cfg(tcfgmod))
 
     monkeypatch.setattr(tcfgmod, "openlane_config", ol)
+    for preset, small_cfg in (("openlane_multiscale_config",
+                               tp.small_ms_cfg),
+                              ("openlane_propagate_config",
+                               tp.small_v3_cfg)):
+        real = getattr(tcfgmod, preset)
+        monkeypatch.setattr(tcfgmod, preset, (
+            lambda real, small_cfg: lambda n_offsets=72: small(
+                real(n_offsets), small_cfg(tcfgmod)))(real, small_cfg))
     return seen
 
 
@@ -98,6 +107,65 @@ def test_openlane_cli_resumes(trained, tmp_path):
     assert len(history) == 1 and np.isfinite(history[0])
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "best.pt", "epoch_1.pt", "epoch_2.pt", "log.txt"]
+
+
+VARIANT_HEADS = {"multiscale": ("multi", False),
+                 "propagate": ("single", True)}
+
+
+@pytest.mark.parametrize("fp32", [False, True])
+@pytest.mark.parametrize("variant", list(VARIANT_HEADS))
+def test_openlane_cli_trains_each_variant(trained, tmp_path, variant,
+                                          fp32):
+    """``--variant multiscale`` (``Router4OLV2``) and ``--variant
+    propagate`` (``Router4OLV3``) train one epoch in the asked dtype."""
+    argv = COMMON + ["--workdir", str(tmp_path), "--variant", variant] + (
+        ["--fp32"] if fp32 else [])
+    history = ol_cli.main(argv)
+    assert len(history) == 1 and np.isfinite(history[0])
+    m = trained["cfg"].model
+    assert m.compute_dtype == ("float32" if fp32 else "bfloat16")
+    assert (m.head.variant, m.head.propagate_priors) == VARIANT_HEADS[
+        variant]
+    assert trained["cfg"].train.loss.style == "blend_cls"
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "best.pt", "epoch_1.pt", "log.txt"]
+
+
+@pytest.mark.parametrize("variant", list(VARIANT_HEADS))
+def test_openlane_cli_resumes_each_variant(trained, tmp_path, variant):
+    """A second epoch of each variant resumed from the first's
+    checkpoint (in bf16, the default)."""
+    argv = COMMON + ["--workdir", str(tmp_path), "--variant", variant]
+    ol_cli.main(argv)
+    history = ol_cli.main(argv[:2] + ["2"] + argv[3:] + ["--resume"])
+    assert len(history) == 1 and np.isfinite(history[0])
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "best.pt", "epoch_1.pt", "epoch_2.pt", "log.txt"]
+
+
+def test_what_is_not_ported_refuses_clearly(tmp_path):
+    """The other assigners (``train_assigner="dynamic_k"``) when the
+    config is built; quantized training in the training forward and the
+    trainer; training on the dataset itself (``--data-root``)."""
+    import torch
+
+    with pytest.raises(ValueError, match="dynamic_k.*not ported yet"):
+        dataclasses.replace(tp.small_v3_cfg(tcfgmod),
+                            train_assigner="dynamic_k")
+    w8 = tp.small_v3_cfg(tcfgmod, quantize="w8")
+    model = tp.torch_model(w8, tp.init_variables(tp.small_v3_cfg(jcfgmod)))
+    model.train()
+    with pytest.raises(ValueError, match="inference-only"):
+        model.train_forward(torch.zeros((1, 1, 96, 192, 3)),
+                            torch.zeros((1, 1, 4, w8.lane.dim)))
+    with pytest.raises(ValueError, match="inference-only"):
+        trainer.train(tcfgmod.Config(model=w8), None, None, str(tmp_path))
+    for variant in ("single", "multiscale", "propagate"):
+        with pytest.raises(SystemExit, match="not ported yet; pass "
+                                             "--synthetic"):
+            ol_cli.main(["--data-root", "/data/OpenLane", "--variant",
+                         variant])
 
 
 @pytest.mark.parametrize("argv,match", [

@@ -31,36 +31,19 @@ port's (measured 2.3x at the least: :func:`test_jax_float32_is_the_
 farther_from_float64`).
 """
 
-import numpy as np
 import pytest
 
-import torch
 import torch_train_parity as ttp
-from test_torch_train import leaf_tolerance
 
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    out = tmp_path_factory.mktemp("jax_float64") / "ol.npz"
-    with ttp.jax_float64_step("ol", out) as exact:
-        jc, tc, jl, tl = ttp.configs("ol")
-        variables, frames, labels = ttp.problem("ol", tc)
-        ref = ttp.jax_step(jc, jl, variables, labels)(frames)
-        got = ttp.port_step(tc, tl, variables, frames, labels)
-        got64 = ttp.port_step(tc, tl, variables, frames, labels,
-                              dtype=torch.float64)
-        return dict(ref=ref, got=got, got64=got64, exact=exact())
+    return ttp.f32_run("ol", tmp_path_factory.mktemp("jax_float64")
+                       / "ol.npz")
 
 
 def test_train_forward_matches(run):
-    ref, got = run["ref"], run["got"]
-    np.testing.assert_array_equal(got["matches"], ref["matches"])
-    for name in ("pred_fir", "pred_sec", "diff"):
-        g = getattr(got["outs"], name).detach().numpy()
-        r = np.asarray(getattr(ref["outs"], name))
-        assert g.shape == r.shape, name
-        np.testing.assert_allclose(g, r, rtol=0, atol=1e-3, err_msg=name)
-    assert got["mem"].t == ttp.T
+    ttp.check_f32_forward(run)
 
 
 def test_loss_matches(run):
@@ -68,64 +51,33 @@ def test_loss_matches(run):
     assert abs(got["loss"] - ref["loss"]) <= 2e-5 * abs(ref["loss"])
 
 
-def jax_error(run, name):
-    """|JAX float32 - JAX float64| of gradient leaf ``name``."""
-    return np.abs(run["ref"]["grads"][name]
-                  - run["exact"]["grads"][name]).max()
-
-
 @pytest.mark.parametrize("name", ttp.leaf_names("ol"))
 def test_leaf_gradient_matches(run, name):
-    r, g = run["ref"]["grads"][name], run["got"]["grads"][name]
-    assert g.shape == r.shape
-    bound = (leaf_tolerance(name) * np.abs(r).max() + 1e-5
-             + jax_error(run, name))
-    assert np.abs(g - r).max() <= bound, (np.abs(g - r).max(), bound)
+    ttp.check_f32_leaf(run, name)
 
 
 def test_batchnorm_running_stats_after_step(run):
-    ref, got = run["ref"], run["got"]
-    assert ref["batch_stats"]
-    for k, x in ref["batch_stats"].items():
-        np.testing.assert_allclose(got["batch_stats"][k], x, rtol=0,
-                                   atol=1e-5, err_msg=k)
+    ttp.check_f32_running_stats(run)
 
 
 def test_float64_step_matches_jax_float64(run):
     """The port's float64 step against JAX's: matches, loss, outputs."""
-    got, exact = run["got64"], run["exact"]
-    np.testing.assert_array_equal(got["matches"], exact["matches"])
-    assert abs(got["loss"] - exact["loss"]) <= 1e-7 * abs(exact["loss"])
-    for name, x in exact["outs"].items():
-        g = getattr(got["outs"], name).detach().numpy()
-        np.testing.assert_allclose(g, x, rtol=0, atol=1e-5, err_msg=name)
+    ttp.check_f64_step(run)
 
 
 @pytest.mark.parametrize("name", ttp.leaf_names("ol"))
 def test_float64_leaf_gradient_matches_jax_float64(run, name):
-    g, x = run["got64"]["grads"][name], run["exact"]["grads"][name]
-    assert g.shape == x.shape
-    bound = 1e-5 * np.abs(x).max() + 1e-12
-    assert np.abs(g - x).max() <= bound, (np.abs(g - x).max(), bound)
+    ttp.check_f64_leaf(run, name)
 
 
 def test_loss_against_float64(run):
     """The port's float32 loss within 1e-5 relative of the exact one
     (measured 1.6e-7; JAX's 2.3e-6)."""
-    got, exact = run["got"], run["exact"]
-    assert abs(got["loss"] - exact["loss"]) <= 1e-5 * abs(exact["loss"])
+    ttp.check_f32_loss_against_f64(run)
 
 
 def test_jax_float32_is_the_farther_from_float64(run):
     """On the leaves where the port is farther from JAX than the float32
     bound, JAX's float32 gradient is at least twice as far from the exact
     one as the port's."""
-    far = 0
-    for name, x in run["exact"]["grads"].items():
-        r, g = run["ref"]["grads"][name], run["got"]["grads"][name]
-        if np.abs(g - r).max() <= (leaf_tolerance(name) * np.abs(r).max()
-                                   + 1e-5):
-            continue
-        far += 1
-        assert np.abs(g - x).max() * 2 < jax_error(run, name), name
-    assert far > 0
+    assert ttp.check_jax_is_the_farther(run) > 0

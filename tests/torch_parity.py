@@ -6,12 +6,16 @@ frames, 32 priors, 12 offsets, 8 sample points, widths 16) and two
 OpenLane-V ones at 96x192 with 32 priors and 24 offsets, the multi-scale
 head's (``tests/test_head_ms.py``'s values: points (6, 12, 24) over
 channels (16, 8, 4), window 3) and the single head's (the OL lane layout,
-learned positions, a separate offset head, soft routing, window 2).
+learned positions, a separate offset head, soft routing, window 2); and
+the prior-propagation head's (``tests/test_head_v3.py``'s values: 96x192,
+32 priors, 12 offsets, K = 4 slots, one frame carried).
 Weights are drawn with numpy for the JAX package's parameter tree and
 reach the port through ``phnet_torch.convert``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -103,6 +107,52 @@ def small_ms_cfg(cfgmod, quantize: str = "none"):
         org_size=(1280, 1920),
         quantize=quantize,
     )
+
+
+def small_v3_cfg(cfgmod, quantize: str = "none",
+                 conf_threshold: float = 0.5):
+    """The small prior-propagation ModelConfig (``Router4OLV3``;
+    ``tests/test_head_v3.py::v3_cfg``: 96x192 frames, 32 priors, 12
+    offsets, K = 4 propagated slots, a one-frame memory)."""
+    return cfgmod.ModelConfig(
+        img_h=96,
+        img_w=192,
+        lane=cfgmod.LaneSpec(n_offsets=12, n_lengths=1),
+        backbone=cfgmod.BackboneConfig(in_channels=(8, 16, 24, 32)),
+        neck=cfgmod.NeckConfig(in_channels=(16, 24, 32), out_channels=16,
+                               num_outs=3),
+        head=cfgmod.HeadConfig(num_priors=32, sample_points=8,
+                               fc_hidden_dim=16, prior_feat_channels=16,
+                               decoder_ffn_dim=32, pos_encoding="learned",
+                               separate_offset_head=True,
+                               propagate_priors=True),
+        memory=cfgmod.MemoryConfig(window=1),
+        test=cfgmod.TestParams(conf_threshold=conf_threshold,
+                               nms_thres=20.0, nms_topk=4),
+        max_lanes=4,
+        routing="soft",
+        crop_size=480,
+        org_size=(1280, 1920),
+        quantize=quantize,
+    )
+
+
+def check_fields(got, ref, where="model", differ=None):
+    """Every field of the port's dataclass ``got`` equals the same field
+    of the JAX package's ``ref``, recursively (fields the JAX package has
+    and the port has not are not compared), but the paths in ``differ``
+    ({"model.head.x": the port's value}), which must hold the port's value
+    and differ from JAX's."""
+    differ = differ or {}
+    for f in dataclasses.fields(got):
+        value, want = getattr(got, f.name), getattr(ref, f.name)
+        path = f"{where}.{f.name}"
+        if dataclasses.is_dataclass(value):
+            check_fields(value, want, path, differ)
+        elif path in differ:
+            assert value == differ[path] != want, path
+        else:
+            assert value == want, path
 
 
 def variable_shapes(cfg):

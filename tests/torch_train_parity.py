@@ -1,7 +1,8 @@
 """Shared set-up of the port's training-step parity tests
 (``test_torch_train_*.py``): one step of each package at a small
-configuration of ``torch_parity`` (VIL or the OpenLane-V single head), in
-float32 or bfloat16, B = 1 clip of T = 2 frames, decoder dropout 0.
+configuration of ``torch_parity`` (VIL or one of OpenLane-V's three
+heads), in float32 or bfloat16, B = 1 clip of T = 2 frames, decoder
+dropout 0.
 
 The JAX side is ``make_train_step``'s loss function (``model.apply(...,
 train=True, mutable=["batch_stats"])`` then ``LaneCriterion``),
@@ -63,16 +64,21 @@ B, T = 1, 2
 ULP_SEEDS = (5, 6, 7)
 
 
+# the small configuration of each preset: "vil"; OpenLane-V's single head
+# "ol", multi-scale head "ms" and prior-propagation head "v3"
+SMALL = {"vil": tp.small_model_cfg, "ol": tp.small_ol_cfg,
+         "ms": tp.small_ms_cfg, "v3": tp.small_v3_cfg}
+
+
 def configs(preset: str, dtype: str = "float32", chain_f32: bool = False):
     """(JAX ModelConfig, port ModelConfig, JAX LossConfig, port
-    LossConfig) of ``preset`` ("vil" or "ol") in ``dtype``."""
-    if preset == "ol":
-        j, t = tp.small_ol_cfg(jcfgmod), tp.small_ol_cfg(tcfgmod)
+    LossConfig) of ``preset`` (a key of :data:`SMALL`) in ``dtype``."""
+    j, t = SMALL[preset](jcfgmod), SMALL[preset](tcfgmod)
+    if preset == "vil":
+        jl, tl = jcfgmod.LossConfig(), tcfgmod.LossConfig()
+    else:
         jl = jcfgmod.openlane_config().train.loss
         tl = tcfgmod.openlane_config().train.loss
-    else:
-        j, t = tp.jax_cfg(), tp.torch_cfg()
-        jl, tl = jcfgmod.LossConfig(), tcfgmod.LossConfig()
 
     def adjust(c, **kw):
         return dataclasses.replace(c, compute_dtype=dtype, **kw,
@@ -98,7 +104,7 @@ def clip_labels(rng, spec, img_w: int, max_lanes: int = 4) -> np.ndarray:
 
 def problem(preset: str, tc, seed: int = 0):
     """(numpy variables, frames, labels) from ``seed``."""
-    jc = tp.small_ol_cfg(jcfgmod) if preset == "ol" else tp.jax_cfg()
+    jc = SMALL[preset](jcfgmod)
     rng = np.random.default_rng(seed)
     frames = rng.normal(size=(B, T, tc.img_h, tc.img_w, 3)).astype(
         np.float32)
@@ -120,18 +126,18 @@ def jax_step(jc, jloss, variables, labels, dtype=np.float32):
             train=True, rngs={"dropout": jax.random.key(0)},
             mutable=["batch_stats"])
         loss, _ = criterion(outs, lab)
-        return loss, (outs, updates)
+        return loss, (outs, mem, updates)
 
     jit = exact_jit if jc.compute_dtype == "bfloat16" else jax.jit
     step = jit(jax.value_and_grad(loss_fn, has_aux=True))
     v = jax.tree_util.tree_map(lambda x: jnp.asarray(x, dtype), variables)
 
     def run(frames):
-        (loss, (outs, updates)), grads = step(
+        (loss, (outs, mem, updates)), grads = step(
             v["params"], v["batch_stats"], jnp.asarray(frames, dtype),
             jnp.asarray(labels, dtype))
         return dict(
-            loss=float(loss), outs=outs,
+            loss=float(loss), outs=outs, mem=mem,
             matches=np.stack([np.asarray(outs.matched_fir),
                               np.asarray(outs.matched_sec)]),
             grads={k: g.numpy().astype(np.float64) for k, g in convert(
@@ -177,6 +183,107 @@ def jax_float64_step(preset: str, out: pathlib.Path):
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
+
+
+def f32_run(preset: str, out: pathlib.Path):
+    """Everything the float32 step tests compare: the JAX step (``ref``),
+    the port's (``got``), the port's step in float64 (``got64``) and the
+    JAX package's float64 step (``exact``, :func:`jax_float64_step`, run
+    in a process of its own meanwhile)."""
+    with jax_float64_step(preset, out) as exact:
+        jc, tc, jl, tl = configs(preset)
+        variables, frames, labels = problem(preset, tc)
+        ref = jax_step(jc, jl, variables, labels)(frames)
+        got = port_step(tc, tl, variables, frames, labels)
+        got64 = port_step(tc, tl, variables, frames, labels,
+                          dtype=torch.float64)
+        return dict(ref=ref, got=got, got64=got64, exact=exact())
+
+
+def leaf_tolerance(name: str) -> float:
+    """The float32 bound of a gradient leaf, of its largest entry
+    (``test_torch_train.py``'s): 3e-2 for the router chain's parameters,
+    3e-3 elsewhere."""
+    chain = name.endswith(".taps") or name.endswith(".ln_params")
+    return 3e-2 if ".routers." in name and chain else 3e-3
+
+
+def jax_error(run, name):
+    """|JAX float32 - JAX float64| of gradient leaf ``name``."""
+    return np.abs(run["ref"]["grads"][name]
+                  - run["exact"]["grads"][name]).max()
+
+
+def check_f32_forward(run, atol=1e-3):
+    """Matches bit-equal; predictions and router scores within ``atol``;
+    the frame count."""
+    ref, got = run["ref"], run["got"]
+    np.testing.assert_array_equal(got["matches"], ref["matches"])
+    for name in ("pred_fir", "pred_sec", "diff"):
+        g = getattr(got["outs"], name).detach().numpy()
+        r = np.asarray(getattr(ref["outs"], name))
+        assert g.shape == r.shape, name
+        np.testing.assert_allclose(g, r, rtol=0, atol=atol, err_msg=name)
+    assert got["mem"].t == T
+
+
+def check_f32_leaf(run, name):
+    """A gradient leaf within its float32 bound of JAX's, plus JAX's own
+    distance from the float64 step."""
+    r, g = run["ref"]["grads"][name], run["got"]["grads"][name]
+    assert g.shape == r.shape
+    bound = (leaf_tolerance(name) * np.abs(r).max() + 1e-5
+             + jax_error(run, name))
+    assert np.abs(g - r).max() <= bound, (np.abs(g - r).max(), bound)
+
+
+def check_f32_running_stats(run, atol=1e-5):
+    ref, got = run["ref"], run["got"]
+    assert ref["batch_stats"]
+    for k, x in ref["batch_stats"].items():
+        np.testing.assert_allclose(got["batch_stats"][k], x, rtol=0,
+                                   atol=atol, err_msg=k)
+
+
+def check_f64_step(run, out_atol=1e-5):
+    """The port's float64 step against JAX's: matches, loss (1e-7
+    relative), outputs (``out_atol``)."""
+    got, exact = run["got64"], run["exact"]
+    np.testing.assert_array_equal(got["matches"], exact["matches"])
+    assert abs(got["loss"] - exact["loss"]) <= 1e-7 * abs(exact["loss"])
+    for name, x in exact["outs"].items():
+        g = getattr(got["outs"], name).detach().numpy()
+        np.testing.assert_allclose(g, x, rtol=0, atol=out_atol,
+                                   err_msg=name)
+
+
+def check_f64_leaf(run, name, rel=1e-5):
+    """The port's float64 gradient leaf within ``rel`` of the largest
+    entry of JAX's float64 one."""
+    g, x = run["got64"]["grads"][name], run["exact"]["grads"][name]
+    assert g.shape == x.shape
+    bound = rel * np.abs(x).max() + 1e-12
+    assert np.abs(g - x).max() <= bound, (np.abs(g - x).max(), bound)
+
+
+def check_f32_loss_against_f64(run):
+    got, exact = run["got"], run["exact"]
+    assert abs(got["loss"] - exact["loss"]) <= 1e-5 * abs(exact["loss"])
+
+
+def check_jax_is_the_farther(run):
+    """On the leaves where the port is farther from JAX than the float32
+    bound, JAX's float32 gradient is at least twice as far from the exact
+    one as the port's. Returns how many leaves that is."""
+    far = 0
+    for name, x in run["exact"]["grads"].items():
+        r, g = run["ref"]["grads"][name], run["got"]["grads"][name]
+        if np.abs(g - r).max() <= (leaf_tolerance(name) * np.abs(r).max()
+                                   + 1e-5):
+            continue
+        far += 1
+        assert np.abs(g - x).max() * 2 < jax_error(run, name), name
+    return far
 
 
 @contextlib.contextmanager
@@ -255,7 +362,8 @@ def port_step(tc, tloss, variables, frames, labels, pin=None,
         loss=loss.item(), outs=outs, mem=mem,
         matches=np.stack([outs.matched_fir.numpy(),
                           outs.matched_sec.numpy()]),
-        grads={n: p.grad.double().numpy()
+        grads={n: (p.grad if p.grad is not None else torch.zeros_like(p)
+                   ).double().numpy()
                for n, p in model.named_parameters()},
         batch_stats={k: v.numpy() for k, v in model.state_dict().items()
                      if k.endswith(".mean") or k.endswith(".var")})
@@ -281,13 +389,14 @@ def robust_slots(labels, *runs) -> np.ndarray:
     return keep
 
 
-def bf16_run(preset: str, chain_f32: bool = False):
+def bf16_run(preset: str, chain_f32: bool = False, ulp_seeds=ULP_SEEDS):
     """Everything the bf16 step tests compare: the JAX step on the frames
-    and their one-ulp copies, the port's free matches on the same, and the
-    port's step pinned to JAX's matches on the frames and the copies."""
+    and their one-ulp copies (one a seed of ``ulp_seeds``), the port's
+    free matches on the same, and the port's step pinned to JAX's matches
+    on the frames and the copies."""
     jc, tc, jl, tl = configs(preset, "bfloat16", chain_f32)
     variables, frames, labels = problem(preset, tc)
-    copies = [one_ulp(frames, s) for s in ULP_SEEDS]
+    copies = [one_ulp(frames, s) for s in ulp_seeds]
     jstep = jax_step(jc, jl, variables, labels)
     ref = jstep(frames)
     jax_ulp = [jstep(f) for f in copies]
@@ -368,11 +477,12 @@ def leaf_names(preset: str):
 # -- the checks of a bf16 run (``bf16_run``), shared by the test modules ---
 
 def check_outputs_float32(run):
-    """The head's outputs reach the criterion in float32; the ring is
-    float32."""
+    """The head's outputs reach the criterion in float32; the memory (the
+    ring, or the one-frame carry) is float32."""
     for name in ("pred_fir", "pred_sec", "diff"):
         assert getattr(run["got"]["outs"], name).dtype == torch.float32
-    assert run["got"]["mem"].values.dtype == torch.float32
+    assert all(x.dtype == torch.float32 for x in run["got"]["mem"][:-1]
+               if x.is_floating_point())
 
 
 def check_robust_matches(run, robust_min: float):

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where a serving tick of the PyTorch port spends its time on the card.
 
-    python tools/torch_serving_profile.py [--preset {vil,openlane,openlane_ms}]
+    python tools/torch_serving_profile.py
+        [--preset {vil,openlane,openlane_ms,openlane_propagate}]
         [--streams 4] [--ticks 8] [--quantize {none,w8,int8}]
         [--compute-dtype {float32,bfloat16}]
 
 Serves a full-width model (``--preset``: ``vil100_config``,
-``openlane_config`` or ``openlane_multiscale_config``; the seeded weights
+``openlane_config``, ``openlane_multiscale_config`` or
+``openlane_propagate_config``; the seeded weights
 of ``chip_smoke.py``; ``--quantize`` picks the generator chains'
 numerics: float32, the w8 matmul kernel, or int8 GEMMs;
 ``--compute-dtype bfloat16`` the JAX package's mixed precision; above 8
@@ -61,7 +63,8 @@ def group_of(name: str) -> str:
 
 
 PRESETS = {"vil": "vil100_config", "openlane": "openlane_config",
-           "openlane_ms": "openlane_multiscale_config"}
+           "openlane_ms": "openlane_multiscale_config",
+           "openlane_propagate": "openlane_propagate_config"}
 
 
 def main() -> int:

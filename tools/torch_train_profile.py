@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its time on the card.
 
-    python tools/torch_train_profile.py [--preset vil100|openlane]
+    python tools/torch_train_profile.py
+        [--preset vil100|openlane|openlane_ms|openlane_propagate]
         [--compute-dtype float32|bfloat16] [--batch 1] [--frames 16]
         [--steps 3] [--profile-steps 1] [--no-remat]
 
-Trains the full-width VIL-100 model (or ``openlane_config``'s
-``Router4OL``; float32 or the JAX trainers' bf16; seeded weights, a fixed
+Trains the full-width VIL-100 model (or one of OpenLane-V's heads:
+``openlane_config``'s ``Router4OL``, ``openlane_multiscale_config``'s
+``Router4OLV2``, ``openlane_propagate_config``'s ``Router4OLV3``;
+float32 or the JAX trainers' bf16; seeded weights, a fixed
 batch of seeded synthetic clips) with ``phnet_torch.train.step`` (remat
 per frame, the configuration's default, unless ``--no-remat``): warms
 up, times ``--steps`` steps without the profiler, then traces
@@ -46,7 +49,9 @@ GROUPS = (  # first match wins; matched against the lower-cased kernel name
 )
 
 
-PRESETS = {"vil100": "vil100_config", "openlane": "openlane_config"}
+PRESETS = {"vil100": "vil100_config", "openlane": "openlane_config",
+           "openlane_ms": "openlane_multiscale_config",
+           "openlane_propagate": "openlane_propagate_config"}
 
 
 def group_of(name: str) -> str:
