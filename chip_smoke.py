@@ -138,6 +138,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     ``--variant propagate`` to the first resumable checkpoint and a
     resume; neither head launches K2.
 
+30. the evaluation path's host libraries (``g++``): the nvJPEG decoder and
+    the CULane evaluator;
+31. the committed fixture (``tests/fixtures/torch_eval``: VIL-100 at
+    1280x720, OpenLane-V at 1920x1280) through the port's readers on the
+    card: decode ms a frame at each size, and the card's decode (nvJPEG's
+    planes, libjpeg's upsampling and colour conversion in PyTorch)
+    against the libjpeg decode of the same files (``decoded_u8.npz``);
+32. the VIL pipeline in float32 at full width over the fixture's test
+    videos, on the card (lane NMS once and the router chain three times a
+    frame, counters zeroed just before) and on the CPU: the emitted lines
+    compared, both scored with the Python and native CULane metrics and
+    the temporal metric (equal scores where the lines are equal), the
+    ground truth against itself F1 = 1; the path's frames a second
+    (decode + model + emit) beside the model's;
+33. the command lines as subprocesses on the fixture, from port
+    checkpoints this phase writes: ``python -m phnet_torch.run.test_vil
+    --evaluate``, ``run.test_ol --variant single``, ``run.evaluate --native
+    --temporal``, each exiting 0.
+
 Phase 18 also holds K2's bf16 mode at one stream (G = 1, the plan of a
 B = 1 training step).
 
@@ -1932,6 +1951,327 @@ def phase_train_heads(torch, card, frames_per_clip=2):
     return out
 
 
+# the evaluation path's data: the committed on-disk fixture
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "fixtures", "torch_eval")
+# the card's decode (nvJPEG's planes, libjpeg's upsampling and colour
+# conversion in PyTorch) against libjpeg's uint8 RGB (``decoded_u8.npz``,
+# written where libjpeg exists), in levels: what the two IDCTs' rounding
+# leaves, measured on the fixture with phase 31 on an NVIDIA H100 80GB
+# HBM3 at 700 W (CUDA 12.8's nvJPEG): at most 3, 0.043 on average
+NVJPEG_MAX_LEVELS = 4
+NVJPEG_MEAN_LEVELS = 0.1
+
+
+def phase_host_build():
+    """Phase 30: the evaluation path's host libraries, with ``g++``: the
+    nvJPEG decoder and the CULane evaluator (the libjpeg loader is the
+    CPU's and does not build where there is no libjpeg)."""
+    from phnet_torch.ops import _build
+
+    names = ["nvjpeg_decode", "culane_eval"]
+    t0 = time.perf_counter()
+    _build.build(names)
+    print(f"[host build] {names} in {time.perf_counter() - t0:.1f} s (g++ "
+          f"{' '.join(_build.GXX_FLAGS)}; libraries in {_build.BUILD_DIR})")
+
+
+def timed_clips(torch, reader):
+    """Every clip of ``reader``, once to warm up and once timed: (clips,
+    seconds a frame, frames)."""
+    reader[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clips = [reader[i] for i in range(len(reader))]
+    torch.cuda.synchronize()
+    n = sum(len(c["frame_names"]) for c in clips)
+    return clips, (time.perf_counter() - t0) / n, n
+
+
+def phase_readers(torch, card):
+    """Phase 31: both fixture trees through the port's readers on the card
+    (nvJPEG's planes, then libjpeg's upsampling and colour conversion, the
+    crop, the resize and the normalization in PyTorch there): clip fields
+    and frame shapes, decode ms a frame at each source size (the whole
+    reader; the decode to uint8 RGB alone), and the decode's uint8 frames
+    against the libjpeg decode of the same files (``decoded_u8.npz``, every
+    7th row and column): at most ``NVJPEG_MAX_LEVELS`` and
+    ``NVJPEG_MEAN_LEVELS`` on average over every sampled value, what the
+    two IDCTs' rounding leaves."""
+    from phnet_torch.config import openlane_config, vil100_config
+    from phnet_torch.data.native_loader import NvJpegDecoder
+    from phnet_torch.data.openlane import OpenLaneDataset
+    from phnet_torch.data.vil100 import VIL100Dataset
+
+    out = {}
+    ref = np.load(os.path.join(FIXTURE, "decoded_u8.npz"))
+    stride = int(ref["stride"])
+    with NvJpegDecoder() as dec:
+        for key, preset, reader_cls, n_clips in (
+                ("vil", vil100_config, VIL100Dataset, 2),
+                ("ol", openlane_config, OpenLaneDataset, 1)):
+            cfg = preset()
+            reader = reader_cls(FIXTURE, cfg.model)
+            clips, sec, n = timed_clips(torch, reader)
+            shape = (4, cfg.model.img_h, cfg.model.img_w, 3)
+            for c in clips:
+                f = c["frames"]
+                if (len(clips) != n_clips or not f.is_cuda
+                        or tuple(f.shape) != shape
+                        or not bool(torch.isfinite(f).all())
+                        or c["labels"].shape[:2] != (4, cfg.model.max_lanes)):
+                    raise AssertionError(f"[readers {key}] clip {c['name']}"
+                                         f": {tuple(f.shape)} on "
+                                         f"{f.device}, labels "
+                                         f"{c['labels'].shape}")
+            paths = [os.path.join(FIXTURE, p) for p in ref[key + "_files"]]
+            want = ref[key].astype(np.int16)
+
+            def levels(u8):
+                got = u8[:, ::stride, ::stride].cpu().numpy()
+                return np.abs(got.astype(np.int16) - want)
+
+            u8 = dec.decode(paths)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.decode(paths)
+            torch.cuda.synchronize()
+            nv_sec = (time.perf_counter() - t0) / len(paths)
+            diff = levels(u8)
+            src = tuple(u8.shape[1:3])
+            print(f"[readers {key}] {len(clips)} clips, {n} frames of "
+                  f"{src[1]}x{src[0]} -> {shape[2]}x{shape[1]}: reader "
+                  f"{1e3 * sec:.2f} ms a frame (decode, resize, normalize "
+                  f"on the card; labels on the host), decode to uint8 RGB "
+                  f"alone {1e3 * nv_sec:.2f} ms a frame; against libjpeg: "
+                  f"max {int(diff.max())}, mean {diff.mean():.4f} levels, "
+                  f"{(diff > 0).mean():.4f} of values differ "
+                  f"({diff.size} sampled) [{card}]")
+            if (diff.max() > NVJPEG_MAX_LEVELS
+                    or diff.mean() > NVJPEG_MEAN_LEVELS):
+                raise AssertionError(f"[readers {key}] nvJPEG is {diff.max()}"
+                                     f" levels (mean {diff.mean():.4f}) "
+                                     f"from libjpeg")
+            out[key] = {"clips": clips, "ms_per_frame": 1e3 * sec,
+                        "nvjpeg_ms_per_frame": 1e3 * nv_sec,
+                        "max_levels": int(diff.max())}
+    return out
+
+
+def lines_tree(root):
+    return sorted(os.path.relpath(p, root) for p in glob.glob(
+        os.path.join(root, "*", "*.lines.txt")))
+
+
+def phase_eval_pipeline(torch, card, state_dict, clips):
+    """Phase 32: the VIL pipeline in float32 at full width over the
+    fixture's two test videos read on the card (``clips``): on the card,
+    counters zeroed just before and read just after (K1 once and K2 three
+    times a frame), and on the CPU over the same frames; the emitted lines
+    compared as the pipeline tests compare them (the same files, lane
+    counts equal, points within 1 px: the format writes integer pixels).
+    Both emissions scored with the Python and native CULane metrics at IoU
+    0.5 and the temporal metric: equal where every file is byte-equal (else
+    per frame on the byte-equal files); the ground truth against itself F1
+    = 1 in both metrics. The ground truth is in the model's frame and the
+    lines in the image's, so those scores are near 0 whatever the weights;
+    the card's lines scored against the CPU's (one frame) must match lanes
+    (TP > 0) with equal counts in both metrics. Prints the path's frames
+    a second (decode + model + emit) beside the pipeline's model-only
+    rate."""
+    from phnet_torch.config import vil100_config
+    from phnet_torch.data.vil100 import VIL100Dataset
+    from phnet_torch.evaluation.culane_metric import (aggregate_results,
+                                                      culane_metric)
+    from phnet_torch.evaluation.emit import read_lines_txt
+    from phnet_torch.evaluation.native_eval import evaluate_pairs
+    from phnet_torch.evaluation.temporal import (aggregate_temporal,
+                                                 temporal_metric_video)
+    from phnet_torch.ops import nms as tnms
+    from phnet_torch.ops import router_chain as trc
+    from phnet_torch.ops import w8_matmul as tw8
+    from phnet_torch.pipeline import InferencePipeline
+
+    cfg = vil100_config()
+    shape = (720, 1280, 3)
+    n_frames = sum(len(c["frame_names"]) for c in clips)
+    with tempfile.TemporaryDirectory() as tmp:
+        def d(name):
+            return os.path.join(tmp, name)
+
+        pipe = InferencePipeline(cfg, state_dict, chunk=4)
+        pipe.run_video(clips[0]["frames"])  # warm-up
+        reader = VIL100Dataset(FIXTURE, cfg.model)
+        torch.cuda.synchronize()
+        tnms.lane_nms.launches = 0
+        trc.router_chain.launches = 0
+        tw8.w8_matmul.launches = 0
+        t0 = time.perf_counter()
+        stats = pipe.run_and_emit(reader, d("card"), d("anno"))
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        k1, k2, k3 = (tnms.lane_nms.launches, trc.router_chain.launches,
+                      tw8.w8_matmul.launches)
+        if stats["frames"] != n_frames or k1 < n_frames or k2 < 3 * n_frames:
+            raise AssertionError(f"[eval pipeline] {stats['frames']} frames;"
+                                 f" launches lane_nms {k1}, router_chain "
+                                 f"{k2}")
+        cpu = InferencePipeline(cfg, state_dict, chunk=4, device="cpu")
+        host = [dict(c, frames=c["frames"].cpu()) for c in clips]
+        cpu.run_and_emit(host, d("cpu"))
+        files = lines_tree(d("card"))
+        if files != lines_tree(d("cpu")) or len(files) != n_frames:
+            raise AssertionError("[eval pipeline] card and CPU wrote "
+                                 "different files")
+        same, n_lanes, worst = [], 0, 0.0
+        for f in files:
+            a = read_lines_txt(os.path.join(d("card"), f))
+            b = read_lines_txt(os.path.join(d("cpu"), f))
+            if len(a) != len(b) or any(len(x) != len(y)
+                                       for x, y in zip(a, b)):
+                raise AssertionError(f"[eval pipeline] {f}: lanes differ "
+                                     f"card {a} CPU {b}")
+            for x, y in zip(a, b):
+                worst = max(worst, float(np.abs(np.subtract(x, y)).max()))
+            n_lanes += len(a)
+            with open(os.path.join(d("card"), f), "rb") as fa, open(
+                    os.path.join(d("cpu"), f), "rb") as fb:
+                if fa.read() == fb.read():
+                    same.append(f)
+        if worst > 1.0 or n_lanes == 0:
+            raise AssertionError(f"[eval pipeline] points {worst} px apart,"
+                                 f" {n_lanes} lanes")
+        scores = {}
+        for run in ("card", "cpu"):
+            pairs = [(os.path.join(d(run), f), os.path.join(d("anno"), f))
+                     for f in files]
+            per_frame = [culane_metric(read_lines_txt(p), read_lines_txt(a),
+                                       shape) for p, a in pairs]
+            videos = {}
+            for f, (p, a) in zip(files, pairs):
+                videos.setdefault(f.split("/")[0], []).append(
+                    (read_lines_txt(p), read_lines_txt(a)))
+            temporal = aggregate_temporal([temporal_metric_video(
+                [a for _, a in v], [p for p, _ in v], [shape] * len(v))
+                for v in videos.values()])
+            scores[run] = {"python": aggregate_results(per_frame),
+                           "native": evaluate_pairs(pairs, 1280, 720),
+                           "temporal": temporal, "per_frame": per_frame}
+        card_s, cpu_s = scores["card"], scores["cpu"]
+        if len(same) == len(files):
+            for k in ("python", "native", "temporal"):
+                if card_s[k] != cpu_s[k]:
+                    raise AssertionError(f"[eval pipeline] {k} scores "
+                                         f"differ: {card_s[k]} {cpu_s[k]}")
+        for i, f in enumerate(files):
+            if f in same:
+                a, b = card_s["per_frame"][i], cpu_s["per_frame"][i]
+                if a[:3] != b[:3] or not np.array_equal(a[3], b[3]):
+                    raise AssertionError(f"[eval pipeline] {f} scores differ")
+        gt_pairs = [(os.path.join(d("anno"), f),) * 2 for f in files]
+        gt_native = evaluate_pairs(gt_pairs, 1280, 720)
+        gt_python = aggregate_results([culane_metric(
+            read_lines_txt(a), read_lines_txt(a), shape)
+            for a, _ in gt_pairs])
+        if gt_native["F1"] != 1.0 or gt_python["F1"] != 1.0:
+            raise AssertionError(f"[eval pipeline] GT against itself: "
+                                 f"native {gt_native}, python {gt_python}")
+        # the card's lines scored against the CPU's, both in the image's
+        # frame (the ground truth above is in the model's: a fault of both
+        # packages), so that the metrics match lanes: TP > 0, and the
+        # Python and native counts equal
+        cross = [(os.path.join(d("card"), f), os.path.join(d("cpu"), f))
+                 for f in files]
+        cross_native = evaluate_pairs(cross, 1280, 720)
+        cross_python = aggregate_results([culane_metric(
+            read_lines_txt(p), read_lines_txt(a), shape) for p, a in cross])
+        if cross_python["TP"] == 0 or any(
+                cross_native[k] != cross_python[k] for k in ("TP", "FP",
+                                                             "FN")):
+            raise AssertionError(f"[eval pipeline] card against CPU lines: "
+                                 f"native {cross_native}, python "
+                                 f"{cross_python}")
+    model_fps = stats["fps"]
+    path_fps = n_frames / path_s
+    print(f"[eval pipeline] VIL f32 over the fixture: {n_frames} frames, "
+          f"{n_lanes} lanes, card vs CPU {len(same)}/{len(files)} files "
+          f"byte-equal, points at most {worst:.0f} px apart; launches "
+          f"lane_nms {k1}, router_chain {k2}, w8_matmul {k3}; scores at IoU "
+          f"0.5 card "
+          f"{ {k: round(v, 4) for k, v in card_s['native'].items()} }"
+          f", python F1 {card_s['python']['F1']:.4f} (CPU "
+          f"{cpu_s['python']['F1']:.4f}), temporal {card_s['temporal']}; GT "
+          f"vs GT F1 native {gt_native['F1']}, python {gt_python['F1']}; "
+          f"card vs CPU lines TP {cross_python['TP']} FP "
+          f"{cross_python['FP']} FN {cross_python['FN']}, F1 native "
+          f"{cross_native['F1']:.4f}, python {cross_python['F1']:.4f}; "
+          f"path (decode + model + emit) {path_fps:.2f} frames/s, model "
+          f"{model_fps:.2f} frames/s [{card}]")
+    return {"path_fps": path_fps, "model_fps": model_fps,
+            "lane_nms": k1, "router_chain": k2}
+
+
+def write_port_checkpoint(torch, cfg, state_dict, workdir):
+    """``state_dict`` as a ``phnet_torch.train`` checkpoint named best;
+    returns the command lines' ``--checkpoint``."""
+    from phnet_torch.train.checkpoint import CheckpointManager
+    from phnet_torch.train.state import create_train_state
+
+    state = create_train_state(cfg, 1, "cpu")
+    state.model.load_state_dict(state_dict, strict=True)
+    CheckpointManager(workdir).save(state, epoch=0, max_skip=0, is_best=True,
+                                    periodic=False)
+    return os.path.join(workdir, "best")
+
+
+def phase_eval_cli(torch, card, state_dict):
+    """Phase 33: the three command lines as subprocesses on the fixture, on
+    the card, with weights from port checkpoints this phase writes (the
+    seeded VIL weights; seeded ``openlane_config`` weights): ``test_vil
+    --evaluate``, ``test_ol --variant single``, ``evaluate --native
+    --temporal``; each must exit 0 (their last lines are printed)."""
+    from phnet_torch.config import openlane_config, vil100_config
+
+    ol_cfg = openlane_config()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        vil_ckpt = write_port_checkpoint(torch, vil100_config(), state_dict,
+                                         os.path.join(tmp, "vil"))
+        ol_ckpt = write_port_checkpoint(
+            torch, ol_cfg, seeded_state_dict(torch, ol_cfg),
+            os.path.join(tmp, "ol"))
+        pred, anno = os.path.join(tmp, "pred"), os.path.join(tmp, "anno")
+        runs = (
+            ("test_vil", ["--data-root", FIXTURE, "--checkpoint", vil_ckpt,
+                          "--pred-dir", pred, "--anno-dir", anno,
+                          "--evaluate"]),
+            ("test_ol", ["--data-root", FIXTURE, "--checkpoint", ol_ckpt,
+                         "--variant", "single", "--pred-dir",
+                         os.path.join(tmp, "ol_pred")]),
+            ("evaluate", ["--pred-dir", pred, "--anno-dir", anno,
+                          "--height", "720", "--width", "1280", "--native",
+                          "--temporal"]))
+        for name, args in runs:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"phnet_torch.run.{name}", *args],
+                capture_output=True, text=True, timeout=600, cwd=root,
+                env=env)
+            tail = (proc.stdout.strip().splitlines() or [""])[-1]
+            print(f"[eval cli] {name}: exit {proc.returncode} in "
+                  f"{time.perf_counter() - t0:.1f} s: {tail} [{card}]")
+            if proc.returncode != 0:
+                raise AssertionError(f"[eval cli] {name} exited "
+                                     f"{proc.returncode}:\n{proc.stdout}\n"
+                                     f"{proc.stderr}")
+        n_ol = len(lines_tree(os.path.join(tmp, "ol_pred")))
+        if len(lines_tree(pred)) != 8 or n_ol != 4:
+            raise AssertionError(f"[eval cli] wrote {len(lines_tree(pred))} "
+                                 f"VIL and {n_ol} OL files")
+
+
 def main() -> int:
     import torch
 
@@ -1999,6 +2339,11 @@ def main() -> int:
     v3 = phase_propagate(torch, card)
     ms_bf16 = phase_multiscale_bf16(torch, card)
     train_heads = phase_train_heads(torch, card)
+    phase_host_build()
+    readers = phase_readers(torch, card)
+    phase_eval_pipeline(torch, card, state_dict, readers["vil"]["clips"])
+    del readers
+    phase_eval_cli(torch, card, state_dict)
 
     w8_ms_frame = stage_sum(w8_ms, 4, [name for name, _, _ in ms_products])
     single, multi = "openlane_config", "openlane_multiscale_config"

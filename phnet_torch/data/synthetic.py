@@ -19,14 +19,9 @@ import numpy as np
 
 from ..config import LaneSpec
 from ..geometry import encode_lane_label
+from .transforms import Normalize
 
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
-
-
-def normalize(img: np.ndarray) -> np.ndarray:
-    """(img / 255 - mean) / std, ImageNet statistics."""
-    return ((img.astype(np.float32) / 255.0) - IMAGENET_MEAN) / IMAGENET_STD
+normalize = Normalize()
 
 
 def lane_points(x_bottom: float, slope: float, curve: float, y_top: float,
@@ -135,3 +130,16 @@ class SyntheticVideoDataset:
                               max_lanes=self.max_lanes)
         return {"name": self.videos[idx], "frames": clip["frames"],
                 "labels": clip["labels"]}
+
+    def get_clip(self, idx: int) -> Dict:
+        """The whole clip for the inference pipeline: ``__getitem__``'s
+        keys and the lane ``points``, the frame ``size`` and
+        ``frame_names``, as the JAX package's ``get_clip`` gives them."""
+        clip = synthetic_clip(self.seed * 1000 + idx, self.frames_per_video,
+                              self.img_h, self.img_w, spec=self.spec,
+                              max_lanes=self.max_lanes)
+        return {"name": self.videos[idx], "frames": clip["frames"],
+                "labels": clip["labels"], "points": clip["points"],
+                "size": clip["size"],
+                "frame_names": [f"{i:05d}" for i in
+                                range(self.frames_per_video)]}

@@ -16,7 +16,7 @@ resolve it by batch as the server does.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,15 +58,19 @@ class InferencePipeline:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def run_video(self, frames: np.ndarray) -> Tuple[List[List[Lane]], float]:
-        """frames: [T, H, W, 3] normalized. Returns (per-frame Lane lists,
-        model seconds)."""
+    def run_video(self, frames: Union[np.ndarray, torch.Tensor]
+                  ) -> Tuple[List[List[Lane]], float]:
+        """frames: [T, H, W, 3] normalized, a numpy array or a tensor on
+        any device (the dataset readers give a tensor on their device).
+        Returns (per-frame Lane lists, model seconds)."""
         mcfg = self.mcfg
+        frames = torch.as_tensor(frames)
         t_total = frames.shape[0]
         chunk = self.chunk
         pad = (-t_total) % chunk
         if pad:
-            frames = np.concatenate([frames, frames[-1:].repeat(pad, 0)], 0)
+            frames = torch.cat([frames, frames[-1:].expand(
+                pad, *frames.shape[1:])])
         mem = init_memory(mcfg, 1, self.memory_window, self.device)
 
         kept_all, valid_all = [], []
@@ -74,8 +78,7 @@ class InferencePipeline:
         for c in range(0, frames.shape[0], chunk):
             if self.reset_per_chunk:
                 mem = init_memory(mcfg, 1, self.memory_window, self.device)
-            x = torch.from_numpy(np.ascontiguousarray(
-                frames[None, c:c + chunk], dtype=np.float32)).to(self.device)
+            x = frames[None, c:c + chunk].to(self.device, torch.float32)
             outs, mem = self.model(x, initial_memory=mem,
                                    dyn_combined=self._dyn)
             kept_all.append(outs.kept[:, 0].cpu().numpy())

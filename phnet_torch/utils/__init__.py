@@ -1,0 +1,2 @@
+"""Utilities of the port: the reference-checkpoint import
+(``torch_import``)."""

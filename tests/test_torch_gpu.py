@@ -5,6 +5,8 @@ and without JAX: ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the suite's conftest configures JAX; this file
 imports no JAX)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -566,3 +568,47 @@ def test_server_above_8_streams_runs_bf16_chain(cuda):
     assert torch.isfinite(kept).all() and valid.any()
     chip_smoke.phase_end_to_end(torch, torch.cuda.get_device_name(0),
                                 weights, chain_bf16=True)
+
+
+# -- the evaluation path's decode on the card (nvJPEG) ----------------------
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures", "torch_eval")
+
+
+def test_colour_path_and_resize_on_card_equal_cpu(cuda):
+    """``ycc_to_rgb`` (integer arithmetic) bit-equal on the card and on the
+    CPU from the same planes, and ``resize_normalize`` likewise (float32
+    elementwise operations, one PyTorch operation each)."""
+    from phnet_torch.data import native_loader as nl
+
+    rng = np.random.default_rng(0)
+    h, w = 721, 1281
+    planes = [rng.integers(0, 256, s, dtype=np.uint8)
+              for s in ((h, w), ((h + 1) // 2, (w + 1) // 2),
+                        ((h + 1) // 2, (w + 1) // 2))]
+    cpu = nl.ycc_to_rgb([torch.from_numpy(p) for p in planes])
+    card = nl.ycc_to_rgb([torch.from_numpy(p).to(cuda) for p in planes])
+    assert torch.equal(card.cpu(), cpu)
+    u8 = torch.stack([cpu, cpu.flip(0)])
+    want = nl.resize_normalize(u8, 252, 384, 768)
+    got = nl.resize_normalize(u8.to(cuda), 252, 384, 768)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_nvjpeg_decode_close_to_libjpeg(cuda):
+    """The card's decode of the fixture's frames against their libjpeg
+    decode (``decoded_u8.npz``), within ``chip_smoke``'s bounds."""
+    import chip_smoke
+    from phnet_torch.data.native_loader import NvJpegDecoder
+
+    ref = np.load(os.path.join(FIXTURE, "decoded_u8.npz"))
+    s = int(ref["stride"])
+    with NvJpegDecoder() as dec:
+        for key in ("vil", "ol"):
+            u8 = dec.decode([os.path.join(FIXTURE, f)
+                             for f in ref[key + "_files"]], cuda)
+            diff = np.abs(u8[:, ::s, ::s].cpu().numpy().astype(np.int16)
+                          - ref[key])
+            assert diff.max() <= chip_smoke.NVJPEG_MAX_LEVELS
+            assert diff.mean() <= chip_smoke.NVJPEG_MEAN_LEVELS

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``phnet_torch``, nothing in
 ``chip_smoke.py`` and nothing in ``tools/torch_serving_profile.py`` or
 ``tools/torch_train_profile.py`` imports JAX, flax, optax or the JAX
-package, and its entry points run on the card by default (so they raise
-where there is none), the OpenLane-V presets' included."""
+package, nor OpenCV, PyYAML or PIL (the card's machine has none of them
+to count on), and its entry points run on the card by default (so they
+raise where there is none), the OpenLane-V presets' included."""
 
 import ast
 from pathlib import Path
@@ -20,7 +21,8 @@ from phnet_torch.train.state import create_train_state
 from phnet_torch.train.trainer import train
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "phnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "phnet_tpu", "cv2", "yaml",
+             "PIL")
 
 
 def port_sources():
@@ -54,8 +56,23 @@ def test_port_sources_exist():
             "phnet_torch/data/synthetic.py", "phnet_torch/data/loader.py",
             "tools/torch_train_profile.py", "phnet_torch/models/head_ms.py",
             "phnet_torch/ops/sampler.py", "phnet_torch/models/head_v3.py",
-            "tools/torch_serving_profile.py"} <= names
+            "tools/torch_serving_profile.py",
+            "phnet_torch/data/vil100.py", "phnet_torch/data/openlane.py",
+            "phnet_torch/data/native_loader.py",
+            "phnet_torch/data/transforms.py",
+            "phnet_torch/evaluation/culane_metric.py",
+            "phnet_torch/evaluation/native_eval.py",
+            "phnet_torch/evaluation/temporal.py",
+            "phnet_torch/evaluation/fixtures.py",
+            "phnet_torch/evaluation/tusimple_acc.py",
+            "phnet_torch/utils/torch_import.py",
+            "phnet_torch/run/test_vil.py", "phnet_torch/run/test_ol.py",
+            "phnet_torch/run/evaluate.py"} <= names
     assert (REPO / "phnet_torch" / "csrc" / "w8_matmul.cu").is_file()
+    for src in ("data/native/clip_loader.cpp",
+                "data/native/nvjpeg_decode.cpp",
+                "evaluation/native/culane_eval.cpp"):
+        assert (REPO / "phnet_torch" / src).is_file()
 
 
 @pytest.mark.parametrize("path", port_sources(),
@@ -63,6 +80,20 @@ def test_port_sources_exist():
 def test_no_jax_imports(path):
     bad = sorted(set(imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("line", [
+    "import cv2", "import yaml as y", "from PIL import Image",
+    "import numpy, jax.numpy", "from phnet_tpu.data import vil100",
+    "import flax.linen as nn"])
+def test_scan_catches_a_planted_import(line, tmp_path):
+    """The scan above fails on a module with a forbidden import, written
+    at top level or inside a function."""
+    path = tmp_path / "planted.py"
+    path.write_text(f"import os\n\n\ndef f():\n    {line}\n")
+    assert set(imported_roots(path)) & set(FORBIDDEN)
+    path.write_text(f"{line}\n")
+    assert set(imported_roots(path)) & set(FORBIDDEN)
 
 
 def test_entry_points_default_to_the_card(tmp_path):
