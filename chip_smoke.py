@@ -72,7 +72,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     relative perturbation of the frames, and the Hungarian matches of both
     branches equal (or no more flips than the perturbed CPU run shows);
 16. training throughput: the full-width model, 16-frame clips, B = 1 and
-    4, dropout 0.1, 1 warm-up and 3 timed steps on a fixed batch: step
+    4, dropout 0.1, 1 warm-up and 2 timed steps on a fixed batch: step
     wall p50, clip-frames/s, device ms (CUDA events), peak memory, K2
     launches a step (3 a frame forward, again in the remat backward: the
     counter must read exactly that, and K1 and K3 none), then at B = 1
@@ -117,7 +117,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     trains by default) at B = 1 without the profiled step;
 24. ``python -m phnet_torch.train.openlane --synthetic`` through its
     ``main`` (bf16) for the preset's 5 epochs to its first resumable
-    checkpoint, one step an epoch, then resumed for a sixth;
+    checkpoint, one step of a 2-frame clip an epoch, then resumed for a
+    sixth;
 25. lane NMS at the prior-propagation head's shape: phase 11 at R = 244
     rows (240 anchors and 4 propagated slots, a partial last warp; the
     main path's streams end in 4 dead rows, cls [20, -20] and xs -2);
@@ -155,7 +156,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 33. the command lines as subprocesses on the fixture, from port
     checkpoints this phase writes: ``python -m phnet_torch.run.test_vil
     --evaluate``, ``run.test_ol --variant single``, ``run.evaluate --native
-    --temporal``, each exiting 0.
+    --temporal``, each exiting 0;
+34. the training augmentation (``TrainAugment`` without OpenCV) on the
+    card against the CPU on the same nvJPEG-decoded frames (VIL 1280x720,
+    OL 1920x1280): each op alone, then the whole pipeline under 8 seeds;
+    its ms a frame on each;
+35. the readers' train mode on the card at 384x768, T = 16, on a training
+    tree made from the fixture (VIL's train video and an OpenLane
+    ``training`` video, 20 frames each), against the CPU readers given
+    the same bytes; the reader's and the decode's ms a frame;
+36. both training command lines in subprocesses on that tree (bf16, T =
+    16, B = 1): VIL with ``--assigner dynamic_k``, OpenLane-V to its first
+    resumable checkpoint and a resume: step wall p50 beside phases
+    23-24's synthetic step, the loader's wait share, K2 a step.
 
 Phase 18 also holds K2's bf16 mode at one stream (G = 1, the plan of a
 B = 1 training step).
@@ -164,7 +177,8 @@ Float32 outside the quantized products and the bf16 phases 18-24. The
 model turns TF32 off itself (``phnet_torch.device.full_f32``); the script
 also turns it off for the plain versions it holds the kernels against.
 The line before the last holds one JSON object per kernel (K2's with its
-launches in a training step beside its serving launches, its bf16 mode's
+launches in a training step beside its serving launches, and in a step
+of the VIL command line on real files, its bf16 mode's
 in a bf16 training step; each kernel's
 launches and times on the OpenLane-V paths under ``openlane_*`` keys, K1's
 at the prior-propagation head's 244 rows under ``propagate_rows_*``; K2's
@@ -1524,7 +1538,8 @@ def phase_train_parity_bf16(torch, card, preset="vil100_config",
                             chain_f32=False, frames_per_clip=4,
                             ulp_seeds=(5, 6)):
     """One bf16 training step of ``preset`` (``router_train_chain_f32``
-    with ``chain_f32``) card against CPU at full width, B=1, T=4, by the
+    with ``chain_f32``) card against CPU at full width, B=1, T =
+    ``frames_per_clip``, by the
     one-ulp method of the CPU parity tests (``tests/torch_train_parity``):
     the card's step and the CPU's steps on copies of the frames moved by
     one bf16 ulp run with the assignment pinned to the CPU's matches. Per
@@ -2272,6 +2287,327 @@ def phase_eval_cli(torch, card, state_dict):
                                  f"VIL and {n_ol} OL files")
 
 
+# the augmentation's gate, card against CPU on the same uint8 frames (the
+# CPU tests hold the CPU path to OpenCV with it: measured 0 levels there)
+AUG_MAX_LEVELS, AUG_MAX_SHARE = 1, 0.01
+TRAIN_TREE_FRAMES = 20  # frames of the training tree's one video each
+
+
+def levels_apart(torch, a, b):
+    """(max levels, share of values differing) of two uint8 images."""
+    d = (a.cpu().to(torch.int16) - b.cpu().to(torch.int16)).abs()
+    return int(d.max()), float((d > 0).float().mean())
+
+
+def phase_augment(torch, card):
+    """Phase 34: the training augmentation (``data/transforms.py``, PyTorch
+    on the card) against the same code on the CPU, on the same uint8
+    frames (a VIL fixture frame at 1280x720 cut by 35%, an OpenLane one at
+    1920x1280 cropped by 480 rows, decoded by nvJPEG): each op alone at
+    pinned parameters (the resize to 384x768, then on the resized frame
+    brightness, hue / saturation either way, median blur k 3 and 5, motion
+    blur k 3, 4 and 5, the affine at its extremes), then the whole
+    ``TrainAugment`` (VIL's and OL's) under 8 seeds each, lanes and ids
+    equal; at most ``AUG_MAX_LEVELS`` on under ``AUG_MAX_SHARE`` of the
+    values. Prints the ms a frame of the whole augmentation on the card
+    (CUDA-synchronized wall) and on the CPU."""
+    from phnet_torch.data import transforms as T
+    from phnet_torch.data.native_loader import NvJpegDecoder
+
+    ref = np.load(os.path.join(FIXTURE, "decoded_u8.npz"))
+    out = {}
+    with NvJpegDecoder() as dec:
+        for key, cut_of in (("vil", lambda h: int(h * 0.35)),
+                            ("ol", lambda h: 480)):
+            src = dec.decode([os.path.join(FIXTURE, ref[key + "_files"][0])])
+            src = src[0, cut_of(src.shape[1]):]
+            small = T.resize_u8(src, 384, 768)
+            m = T.rotation_matrix((384.0, 192.0), 5.0, 1.1)
+            m[:, 2] += (76.8, -38.4)
+            ops = [("resize", lambda x: T.resize_u8(x, 384, 768), src)]
+            ops += [(name, fn, small) for name, fn in (
+                ("brightness", lambda x: T.brightness(x, 1.1234, -7.5)),
+                ("hue_sat -9.7", lambda x: T.hue_saturation(x, -9.7)),
+                ("hue_sat 6.3", lambda x: T.hue_saturation(x, 6.3)),
+                ("median 3", lambda x: T.median_blur(x, 3)),
+                ("median 5", lambda x: T.median_blur(x, 5)),
+                ("motion 3", lambda x: T.filter2d(
+                    x, T.motion_blur_kernel(3, 33.3))),
+                ("motion 4", lambda x: T.filter2d(
+                    x, T.motion_blur_kernel(4, 217.9))),
+                ("motion 5", lambda x: T.filter2d(
+                    x, T.motion_blur_kernel(5, 90.0))),
+                ("affine", lambda x: T.warp_affine(x, m)))]
+            worst = {}
+            for name, fn, img in ops:
+                lv, share = levels_apart(torch, fn(img), fn(img.cpu()))
+                worst[name] = (lv, share)
+                if lv > AUG_MAX_LEVELS or share > AUG_MAX_SHARE:
+                    raise AssertionError(f"[augment {key}] {name}: card "
+                                         f"{lv} levels from the CPU on "
+                                         f"{share:.4f} of the values")
+            h, w = src.shape[:2]
+            lanes = [np.array([[0.2 * w, 0.95 * h], [0.45 * w, 0.3 * h]],
+                              np.float32),
+                     np.array([[-2.0 * w, 0.9 * h], [-1.5 * w, 0.1 * h]],
+                              np.float32),
+                     np.array([[0.9 * w, 0.95 * h], [1.1 * w, 0.2 * h]],
+                              np.float32)]
+
+            def aug(seed):
+                rng = np.random.default_rng(seed)
+                return (T.TrainAugment.ol_defaults(384, 768, rng)
+                        if key == "ol" else T.TrainAugment(384, 768, rng=rng))
+
+            times = {"card": 0.0, "cpu": 0.0}
+            whole = (0, 0.0)
+            for seed in range(8):
+                results = {}
+                for where, img in (("card", src), ("cpu", src.cpu())):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    results[where] = aug(seed)(img, lanes, [0, 1, 2])
+                    torch.cuda.synchronize()
+                    if seed:  # the first is the warm-up
+                        times[where] += time.perf_counter() - t0
+                (ci, cl, cids), (pi, pl, pids) = (results["card"],
+                                                  results["cpu"])
+                lv, share = levels_apart(torch, ci, pi)
+                whole = (max(whole[0], lv), max(whole[1], share))
+                if (cids != pids or len(cl) != len(pl)
+                        or any(not np.array_equal(a, b)
+                               for a, b in zip(cl, pl))
+                        or lv > AUG_MAX_LEVELS or share > AUG_MAX_SHARE):
+                    raise AssertionError(f"[augment {key}] seed {seed}: ids "
+                                         f"{cids} / {pids}, {lv} levels on "
+                                         f"{share:.4f}")
+            ms = {k: 1e3 * v / 7 for k, v in times.items()}
+            print(f"[augment {key}] {w}x{h} -> 768x384, card against CPU on "
+                  f"the same bytes: ops (max levels, share) "
+                  + ", ".join(f"{n} {v[0]}/{v[1]:.4f}"
+                              for n, v in worst.items())
+                  + f"; TrainAugment 8 seeds: {whole[0]} levels on "
+                  f"{whole[1]:.4f}, lanes and ids equal; ms a frame card "
+                  f"{ms['card']:.2f}, CPU {ms['cpu']:.2f} [{card}]")
+            out[key] = dict(ms, max_levels=whole[0])
+    return out
+
+
+def make_train_tree(root):
+    """A training tree under ``root`` from the fixture: VIL-100's train
+    video and an OpenLane ``training`` video made from its validation
+    video, each of ``TRAIN_TREE_FRAMES`` frames (the fixture's 4 JPEGs and
+    labels repeated in turn)."""
+    import shutil
+
+    vid = "1_Road010_Trim002_frames"
+    src = os.path.join(FIXTURE, "VIL100")
+    names = sorted(f[:5] for f in os.listdir(os.path.join(src, "Json", vid)))
+    for sub, ext in (("JPEGImages", ".jpg"), ("Json", ".jpg.json")):
+        os.makedirs(os.path.join(root, "VIL100", sub, vid))
+        for i in range(TRAIN_TREE_FRAMES):
+            shutil.copy(os.path.join(src, sub, vid, names[i % 4] + ext),
+                        os.path.join(root, "VIL100", sub, vid,
+                                     f"{i:05d}{ext}"))
+    os.makedirs(os.path.join(root, "VIL100", "data"))
+    with open(os.path.join(root, "VIL100", "data", "db_info.yaml"), "w") as f:
+        f.write(f"sequences:\n- name: {vid}\n  set: train\n")
+    ol = os.path.join(FIXTURE, "OpenLane")
+    seg = os.listdir(os.path.join(ol, "images", "validation"))[0]
+    stamps = sorted(f[:-4] for f in os.listdir(os.path.join(
+        ol, "images", "validation", seg)))
+    for sub, ext in (("images", ".jpg"),
+                     (os.path.join("OpenLane-V", "label"), ".pickle")):
+        dst = os.path.join(root, "OpenLane", sub, "training", seg)
+        os.makedirs(dst)
+        for i in range(TRAIN_TREE_FRAMES):
+            shutil.copy(os.path.join(ol, sub, "validation", seg,
+                                     stamps[i % 4] + ext),
+                        os.path.join(dst, f"{int(stamps[0]) + i}{ext}"))
+    return root
+
+
+def phase_train_readers(torch, card, tree):
+    """Phase 35: the readers' train mode on the card at the presets' full
+    width (384x768), T = 16, on the training tree: VIL's two clips an
+    epoch and OL's one (flip and reversal drawn), two epochs with a
+    curriculum step, against the same readers on the CPU given the card's
+    decoded bytes (the card's machine has no libjpeg; phase 31 holds
+    nvJPEG to libjpeg): frame names, labels and points equal, frames
+    within the augmentation's gate (normalized: ``AUG_MAX_LEVELS`` / 255 /
+    0.225). Prints the ms a frame of the whole reader on the card (decode,
+    crop, augmentation, normalization, labels) and of the decode alone."""
+    from phnet_torch.config import openlane_config, vil100_config
+    from phnet_torch.data.openlane import OpenLaneDataset
+    from phnet_torch.data.transforms import TrainAugment
+    from phnet_torch.data.vil100 import VIL100Dataset
+
+    out = {}
+    for key, preset, cls, kw, make_aug in (
+            ("vil", vil100_config, VIL100Dataset,
+             dict(max_skip=5, skip_increment=5, samples_per_video=2),
+             lambda m, rng: TrainAugment(m.img_h, m.img_w, rng=rng)),
+            ("ol", openlane_config, OpenLaneDataset,
+             dict(max_skip=1, skip_increment=1, samples_per_video=1),
+             lambda m, rng: TrainAugment.ol_defaults(m.img_h, m.img_w,
+                                                     rng))):
+        m = preset().model
+
+        def reader(device, seed=7):
+            return cls(tree, m, train=True, device=device, sampled_frames=16,
+                       augment=make_aug(m, np.random.default_rng(seed)),
+                       seed=seed, **kw)
+
+        on_card, on_cpu = reader(None), reader("cpu")
+        on_cpu.decode.u8 = lambda paths: on_card.decode.u8(paths).cpu()
+        worst, n, t_read, skips = 0.0, 0, 0.0, []
+        for epoch in range(2):
+            skips.append(on_card.max_skip)
+            for i in range(len(on_card)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = on_card[i]
+                torch.cuda.synchronize()
+                if epoch or i:
+                    t_read += time.perf_counter() - t0
+                    n += len(got["frame_names"])
+                want = on_cpu[i]
+                f = got["frames"]
+                if (not f.is_cuda or tuple(f.shape) != (16, 384, 768, 3)
+                        or got["frame_names"] != want["frame_names"]
+                        or not np.array_equal(got["labels"], want["labels"])
+                        or any(len(a) != len(b) or any(
+                            not np.array_equal(x, y) for x, y in zip(a, b))
+                            for a, b in zip(got["points"],
+                                            want["points"]))):
+                    raise AssertionError(f"[train readers {key}] clip {i} "
+                                         f"epoch {epoch}: fields differ")
+                worst = max(worst, float((f.cpu() - want["frames"]).abs()
+                                         .max()))
+            on_card.increase_max_skip()
+            on_cpu.increase_max_skip()
+        if worst > AUG_MAX_LEVELS / 255.0 / 0.225:
+            raise AssertionError(f"[train readers {key}] frames {worst} "
+                                 f"apart (normalized)")
+        vid = on_card.videos[0]
+        imgdir = (os.path.join(tree, "VIL100", "JPEGImages", vid)
+                  if key == "vil" else os.path.join(on_card.img_root, vid))
+        paths = sorted(os.path.join(imgdir, f)
+                       for f in os.listdir(imgdir))[:16]
+        on_card.decode.u8(paths)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card.decode.u8(paths)
+        torch.cuda.synchronize()
+        decode_ms = 1e3 * (time.perf_counter() - t0) / 16
+        read_ms = 1e3 * t_read / max(n, 1)
+        print(f"[train readers {key}] {len(on_card)} clip(s) an epoch of 16 "
+              f"frames at 768x384, two epochs (max_skip {skips[0]} then "
+              f"{skips[1]}): names, labels and points equal to "
+              f"the CPU's on the same bytes, frames at most {worst:.3g} "
+              f"apart (normalized); reader {read_ms:.2f} ms a frame on the "
+              f"card, decode alone {decode_ms:.2f} ms a frame [{card}]")
+        out[key] = {"read_ms": read_ms, "decode_ms": decode_ms}
+    return out
+
+
+_CLI_WRAP = (
+    "import importlib, json, sys; "
+    "from phnet_torch.ops import router_chain as rc; "
+    "importlib.import_module(sys.argv[1]).main(sys.argv[2:]); "
+    "print('K2 ' + json.dumps([rc.router_chain.launches, "
+    "rc.router_chain.launches_bf16]))")
+
+
+def run_train_cli(module, args, root, env):
+    """``module``'s ``main(args)`` in a subprocess on the card; returns
+    (seconds, the output's steps, wall p50, data wait share, epoch losses,
+    K2 launches (float32, bf16)), raising on a non-zero exit."""
+    import ast
+    import re
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _CLI_WRAP, module, *args],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=root, env=env)
+    sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[train cli] {module} {' '.join(args)} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    text = proc.stdout
+    steps = re.search(r"steps (\d+): wall p50 ([\d.]+) s, data wait "
+                      r"([\d.]+) s of ([\d.]+) s", text)
+    losses = re.search(r"done; epoch losses: (\[.*\])", text)
+    k2 = re.search(r"^K2 (\[.*\])$", text, re.M)
+    if not (steps and losses and k2):
+        raise AssertionError(f"[train cli] {module}: no summary in\n"
+                             f"{text[-3000:]}")
+    return dict(seconds=sec, steps=int(steps.group(1)),
+                p50=float(steps.group(2)),
+                share=float(steps.group(3)) / float(steps.group(4)),
+                wall=float(steps.group(4)),
+                losses=ast.literal_eval(losses.group(1)),
+                k2=json.loads(k2.group(1)))
+
+
+def phase_train_cli(torch, card, tree, synthetic):
+    """Phase 36: both training command lines in subprocesses on the
+    training tree, on the card at the presets' full width, T = 16, B = 1,
+    bf16 (their default): ``python -m phnet_torch.train --data-root tree
+    --assigner dynamic_k`` for an epoch (two steps); ``python -m
+    phnet_torch.train.openlane --data-root tree`` to the preset's first
+    resumable checkpoint (epoch 5, one step an epoch), then resumed for a
+    sixth. Each must exit 0 with finite losses and its checkpoints, K2
+    launching 96 times a step (3 a frame, again in the remat recompute).
+    Prints the step wall p50 and the loader's wait share (the trainer's
+    data seconds over the steps' wall), both over the steps after a
+    process's first, clip-frames/s (16 / p50) beside the same B = 1,
+    T = 16 bf16 step on synthetic clips in this call (``synthetic``:
+    phases 23-24's step p50 in ms by "vil" and "ol", no loader), and K2's
+    launches a step. Returns the runs' numbers."""
+    from phnet_torch.config import openlane_config, vil100_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    vil, ol = "phnet_torch.train.__main__", "phnet_torch.train.openlane"
+    k2_step = {vil: 2 * chain_per_frame(vil100_config()) * 16,
+               ol: 2 * chain_per_frame(openlane_config()) * 16}
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        runs = (
+            ("vil dynamic_k", vil, ["--epochs", "1", "--assigner",
+                                    "dynamic_k"], "vil", ["best.pt"]),
+            ("ol", ol, ["--epochs", "5"], "ol", ["epoch_5.pt", "best.pt"]),
+            ("ol resumed", ol, ["--epochs", "6", "--resume"], "ol",
+             ["epoch_5.pt"]))
+        for tag, module, args, workdir, files in runs:
+            workdir = os.path.join(work, workdir)
+            r = run_train_cli(module, args + [
+                "--data-root", tree, "--frames", "16", "--batch", "1",
+                "--workdir", workdir], root, env)
+            got = os.listdir(workdir)
+            k2 = sum(r["k2"]) / r["steps"]
+            if (not r["losses"] or not np.isfinite(r["losses"]).all()
+                    or any(f not in got for f in files)
+                    or k2 != k2_step[module]):
+                raise AssertionError(f"[train cli] {tag}: losses "
+                                     f"{r['losses']}, files {sorted(got)}, "
+                                     f"K2 {r['k2']} over {r['steps']} steps")
+            r["k2_per_step"] = k2
+            out[tag] = r
+            syn = synthetic[tag[:3].strip()] / 1e3
+            print(f"[train cli] {tag}: exit 0 in {r['seconds']:.1f} s, "
+                  f"{r['steps']} steps, losses {r['losses']}; after the "
+                  f"first step: wall p50 {r['p50']:.3f} s ("
+                  f"{16 / r['p50']:.2f} clip-frames/s; synthetic clips "
+                  f"without the loader {syn:.3f} s, {16 / syn:.2f}), data "
+                  f"wait share {r['share']:.4f}; K2 a step {k2:g} (float32, "
+                  f"bf16 totals {r['k2']}) [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2315,7 +2651,9 @@ def main() -> int:
         phase_train_parity(torch, card)
     finally:
         torch.backends.cudnn.allow_tf32 = False
-    training = phase_train_throughput(torch, card)
+    # two timed steps a size (as phase 29), 2-frame clips in phase 24: the
+    # smoke's time limit (phase 36 covers the OL command line at T = 16)
+    training = phase_train_throughput(torch, card, timed=2)
     phase_trainer(torch, card)
     chain_bf16 = phase_router_bf16(torch, card)
     w8_bf16x = phase_w8_bf16x(torch, card)
@@ -2329,12 +2667,12 @@ def main() -> int:
         phase_train_parity_bf16(torch, card, "openlane_config")
     finally:
         torch.backends.cudnn.allow_tf32 = False
-    training_bf16 = phase_train_throughput(torch, card,
+    training_bf16 = phase_train_throughput(torch, card, timed=2,
                                            compute_dtype="bfloat16")
     training_ol = phase_train_throughput(
-        torch, card, batches=(1,), preset="openlane_config",
+        torch, card, batches=(1,), timed=2, preset="openlane_config",
         compute_dtype="bfloat16", counted=())
-    phase_trainer_openlane(torch, card)
+    phase_trainer_openlane(torch, card, frames_per_clip=2)
     nms_v3 = phase_nms(torch, card, layout="openlane", a=244)
     v3 = phase_propagate(torch, card)
     ms_bf16 = phase_multiscale_bf16(torch, card)
@@ -2344,6 +2682,13 @@ def main() -> int:
     phase_eval_pipeline(torch, card, state_dict, readers["vil"]["clips"])
     del readers
     phase_eval_cli(torch, card, state_dict)
+    phase_augment(torch, card)
+    with tempfile.TemporaryDirectory() as tree:
+        make_train_tree(tree)
+        phase_train_readers(torch, card, tree)
+        train_cli = phase_train_cli(torch, card, tree, synthetic={
+            "vil": training_bf16[1]["step_p50_ms"],
+            "ol": training_ol[1]["step_p50_ms"]})
 
     w8_ms_frame = stage_sum(w8_ms, 4, [name for name, _, _ in ms_products])
     single, multi = "openlane_config", "openlane_multiscale_config"
@@ -2399,6 +2744,9 @@ def main() -> int:
             kernels[-1]["training_launches"] = training[1]["k2_launches"]
             # OpenLane-V in float32: phase 22's step of a 4-frame clip
             kernels[-1]["openlane_training_launches"] = ol_f32_k2[0]
+            # a bf16 step of the VIL command line on real files (phase 36)
+            kernels[-1]["real_data_training_launches"] = \
+                train_cli["vil dynamic_k"]["k2_per_step"]
         kernels[-1].update(ol_keys[name])
     for name, base, numbers, source, count in (  # the bf16 paths' entries
             ("router_chain_bf16", "router_chain",

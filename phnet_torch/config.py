@@ -8,15 +8,17 @@ both packages: VIL-100 and OpenLane-V with all three of OpenLane's heads
 :func:`openlane_propagate_config`, ``Router4OLV3``), in inference and in
 training (:class:`TrainConfig`, :class:`LossConfig`,
 ``HeadConfig.decoder_dropout`` and ``router_train_chain_f32``,
-``ModelConfig.train_assigner`` with the Hungarian assigner only, and
-``ModelConfig.remat_frames``). Fields that only selected TPU formulations
+``ModelConfig.train_assigner`` with the Hungarian and dynamic-k
+assigners, ``ModelConfig.remat_frames``, and the readers' sampling
+``TrainConfig.max_skip`` and ``samples_per_video``). Fields that only
+selected TPU formulations
 of the same function (stem packing, router chain layouts and kernels,
 stage-0 hoisting, dual-branch head stacking, remat policies, scan unroll,
-the flat-matrix AdamW) are gone, and so are fields of what the port does
-not have yet (the dynamic-k assigner, the loaders' settings) and
+the flat-matrix AdamW) are gone, and so are ``DataConfig`` (the readers
+take the frame size, cut and crop from the ``ModelConfig``) and
 ``MemoryConfig.slots_per_frame`` (the port derives the slots from
-``max_lanes``): an unknown keyword fails when the config is built, and a
-training assigner other than Hungarian fails in ``__post_init__``.
+``max_lanes``): an unknown keyword fails when the config is built, and an
+unknown training assigner fails in ``__post_init__``.
 ``compute_dtype="bfloat16"`` is the JAX package's mixed precision (its
 headline configuration and its trainers' default), in inference and in
 training; the multi-scale head reads no compute dtype, as in the JAX
@@ -35,6 +37,7 @@ from typing import Optional, Tuple, Union
 
 QUANTIZE_MODES = ("none", "int8", "w8")
 COMPUTE_DTYPES = ("float32", "bfloat16")
+TRAIN_ASSIGNERS = ("hungarian", "dynamic_k")
 
 
 def check_quantize(mode: str) -> str:
@@ -213,8 +216,10 @@ class ModelConfig:
     # to the compute dtype; the rest of the model computes in it.
     quantize: str = "none"
     # training label assigner, run once a frame on the detached predictions
-    # of both branches and every stage: the batched Jonker-Volgenant solve
-    # (ops/hungarian.py). "dynamic_k" is not ported yet.
+    # of both branches and every stage: "hungarian", the batched
+    # Jonker-Volgenant solve (ops/hungarian.py), or "dynamic_k", the
+    # SimOTA assignment reduced to one prior a target
+    # (losses/assign.py::dynamic_k_frame)
     train_assigner: str = "hungarian"
     # recompute each frame's head in the backward (torch.utils.checkpoint)
     # instead of keeping its activations; the assignment and the memory
@@ -229,9 +234,10 @@ class ModelConfig:
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES},"
                              f" got {self.compute_dtype!r}")
-        if self.train_assigner != "hungarian":
-            raise ValueError(f"train_assigner {self.train_assigner!r} is not "
-                             f"ported yet; the port trains with 'hungarian'")
+        if self.train_assigner not in TRAIN_ASSIGNERS:
+            raise ValueError(f"train_assigner must be one of "
+                             f"{TRAIN_ASSIGNERS}, got "
+                             f"{self.train_assigner!r}")
         h = self.head
         if h.variant not in ("single", "multi"):
             raise ValueError(f"head variant must be 'single' or 'multi', got "
@@ -295,9 +301,11 @@ class TrainConfig:
     solver: str = "adamw"  # "adamw" | "sgd" (Nesterov)
     momentum: Tuple[float, float] = (0.9, 0.999)
     weight_decay: float = 1e-3
+    max_skip: int = 5  # the readers' first largest gap between frames
     skip_increment: int = 5  # the max_skip curriculum's step
     max_training_skip: int = 100
     epochs_per_increment: int = 2
+    samples_per_video: int = 2  # clips drawn from each video an epoch
     epoch_per_test: int = 5  # periodic checkpoints
     seed: int = 3407
     grad_clip_norm: float = 0.0  # 0 = off
@@ -379,7 +387,9 @@ def openlane_config(n_offsets: int = 72, **overrides) -> Config:
         learning_rate=5e-4,
         weight_decay=5e-4,
         epochs_per_increment=15,
+        max_skip=1,
         skip_increment=1,
+        samples_per_video=1,
         loss=LossConfig(cls_weight=8.0, reg_weight=0.5, iou_weight=1.5,
                         focal_alpha=(0.1, 0.9), style="blend_cls",
                         use_lane_iou=True),

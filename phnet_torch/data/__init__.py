@@ -1,4 +1,6 @@
-"""Training data of the port: synthetic clips and the clip loader."""
+"""Data of the port: synthetic clips, the clip loader, and (in their own
+modules) the VIL-100 and OpenLane-V readers, their decoders and
+``transforms.TrainAugment``."""
 from .loader import ClipLoader, collate_clips
 from .synthetic import SyntheticVideoDataset, synthetic_clip
 

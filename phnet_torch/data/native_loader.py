@@ -347,7 +347,8 @@ class ClipDecoder:
     """The readers' clip decoder on ``device`` (None: the card):
     :func:`decode_clip` on the CPU, :func:`decode_clip_card` (with an
     :class:`NvJpegDecoder` made at first use) on the card; a float32
-    tensor on ``device`` either way."""
+    tensor on ``device`` either way. :meth:`u8` decodes to uint8 RGB for
+    the training path's augmentation."""
 
     def __init__(self, device=None):
         from ..device import resolve_device
@@ -362,10 +363,21 @@ class ClipDecoder:
         [n, out_h, out_w, 3] float32 on the decoder's device."""
         if self.device.type == "cpu":
             return torch.from_numpy(decode_clip(paths, cut_px, out_h, out_w))
+        return decode_clip_card(self._card(), paths, cut_px, out_h, out_w,
+                                device=self.device)
+
+    def u8(self, paths: Sequence[str]) -> torch.Tensor:
+        """``paths`` decoded whole, uncropped and unresized: [n, h, w, 3]
+        uint8 RGB on the decoder's device (:func:`decode_clip_u8` on the
+        CPU, :meth:`NvJpegDecoder.decode` on the card)."""
+        if self.device.type == "cpu":
+            return torch.from_numpy(decode_clip_u8(paths))
+        return self._card().decode(paths, self.device)
+
+    def _card(self) -> NvJpegDecoder:
         if self._nvjpeg is None:
             self._nvjpeg = NvJpegDecoder()
-        return decode_clip_card(self._nvjpeg, paths, cut_px, out_h, out_w,
-                                device=self.device)
+        return self._nvjpeg
 
 
 def jpeg_dims(path: str) -> Tuple[int, int]:

@@ -1,24 +1,36 @@
-"""VIL-100 dataset reader, test mode.
+"""VIL-100 dataset reader, in test and in train mode.
 
-Counterpart of ``phnet_tpu/data/vil100.py::VIL100Dataset(train=False)``
-on the reference's on-disk schema (``libs/dataset/dataV3.py:64-205``):
+Counterpart of ``phnet_tpu/data/vil100.py::VIL100Dataset`` on the
+reference's on-disk schema (``libs/dataset/dataV3.py:64-205``):
 
   <root>/VIL100/
     data/db_info.yaml            sequences: [{name, set: train|test}, ...]
     JPEGImages/<vid>/<frame>.jpg
     Json/<vid>/<frame>.jpg.json  {annotations: {lane: [{lane_id, points}]}}
 
-A clip is a whole test video: its frames cropped by the top ``cut_scale``
-of the image, resized to the model's frame and normalized; its lanes
-(lanes of fewer than two points skipped, ``lane_id - 1`` the label row)
-moved up by the cut and scaled with the frames; the fixed-shape labels of the port's
-``geometry.encode_lane_label``. ``db_info.yaml`` is read by
-:func:`read_sequences`, not by a YAML library. Frames are decoded by
-libjpeg on the CPU (bit-equal to the JAX package's native loader) and by
-nvJPEG on the card (``native_loader``); the reader runs on the card unless
-it is given ``device="cpu"``. The frame size, the cut and the label rows
-are the model configuration's. Train mode (the ``max_skip`` curriculum and
-``TrainAugment``) is not ported yet.
+Test mode: a clip is a whole test video: its frames cropped by the top
+``cut_scale`` of the image, resized to the model's frame and normalized;
+its lanes (lanes of fewer than two points skipped, ``lane_id - 1`` the
+label row) moved up by the cut and scaled with the frames; the
+fixed-shape labels of the port's ``geometry.encode_lane_label``. Frames
+are decoded, cropped, resized and normalized by ``native_loader``
+(libjpeg on the CPU, bit-equal to the JAX package's native loader; nvJPEG
+on the card).
+
+Train mode (``train=True``): ``samples_per_video`` clips a train video an
+epoch, each of ``sampled_frames`` frames drawn with gaps of at most
+``max_skip`` (the curriculum: :meth:`increase_max_skip`), from the
+reader's own generator (``seed``) as the JAX reader draws. Each frame is
+decoded whole to uint8 (``ClipDecoder.u8``), cropped, put through
+``augment`` (:class:`~phnet_torch.data.transforms.TrainAugment`, up to 30
+tries while the label encoding raises) and normalized, all on the
+reader's device; without ``augment`` the clip takes test mode's path.
+
+``db_info.yaml`` is read by :func:`read_sequences`, not by a YAML
+library. The reader runs on the card unless it is given ``device="cpu"``.
+The frame size, the cut and the label rows are the model configuration's.
+The segmentation and flow planes (``load_seg``, ``load_flow``) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -26,14 +38,16 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..config import ModelConfig
 from ..geometry import encode_lane_label
 from .native_loader import ClipDecoder, jpeg_dims
-from .transforms import scale_lanes
+from .sampling import FrameSampling
+from .transforms import TrainAugment, normalize, scale_lanes
 
 _KEY = re.compile(r"^([A-Za-z_][\w-]*)\s*:(?:\s+(.*))?$")
 
@@ -129,59 +143,97 @@ def read_sequences(path: str) -> List[Dict[str, str]]:
     return out
 
 
-class VIL100Dataset:
-    """Test videos of VIL-100 under ``<root>/VIL100`` (``train=True``
-    raises), read for a model of configuration ``cfg`` (its ``img_h``,
-    ``img_w``, ``cut_scale``, ``max_lanes`` and lane spec). ``device``:
-    where frames are decoded and returned as a float32 tensor (None: the
-    card)."""
+class VIL100Dataset(FrameSampling):
+    """VIL-100 under ``<root>/VIL100``: its test videos, or with
+    ``train=True`` its train videos, read for a model of configuration
+    ``cfg`` (its ``img_h``, ``img_w``, ``cut_scale``, ``max_lanes`` and
+    lane spec). ``device``: where frames are decoded and returned as a
+    float32 tensor (None: the card). The training arguments are the JAX
+    reader's."""
+
+    MAX_TRAINING_SKIP = 100
 
     def __init__(self, root: str, cfg: ModelConfig, train: bool = False,
-                 device=None):
-        if train:
-            raise NotImplementedError(
-                "VIL100Dataset reads the test split only: train mode (the "
-                "max_skip curriculum and TrainAugment without OpenCV) is "
-                "not ported yet")
+                 device=None, sampled_frames: int = 16, max_skip: int = 5,
+                 skip_increment: int = 5, samples_per_video: int = 2,
+                 augment: Optional[TrainAugment] = None, seed: int = 3407):
         self.cfg = cfg
+        self.train = train
         self.decode = ClipDecoder(device)
         root = os.path.join(root, "VIL100")
         self.imgdir = os.path.join(root, "JPEGImages")
         self.jsondir = os.path.join(root, "Json")
         db = read_sequences(os.path.join(root, "data", "db_info.yaml"))
-        self.videos = [s["name"] for s in db if s["set"] == "test"]
+        target = "train" if train else "test"
+        self.videos = [s["name"] for s in db if s["set"] == target]
+        self.sampled_frames = sampled_frames
+        self.max_skip = max_skip
+        self.increment = skip_increment
+        self.samples_per_video = samples_per_video if train else 1
+        self.augment = augment
+        self.rng = np.random.default_rng(seed)
 
     def __len__(self):
-        return len(self.videos)
+        return self.samples_per_video * len(self.videos)
+
+    def _lanes(self, path: str, cut: int):
+        """A frame's lanes (x, y - cut) of two points or more, and their
+        label rows ``lane_id - 1``."""
+        with open(path) as f:
+            info = json.load(f)
+        lanes, ids = [], []
+        for lane in info["annotations"]["lane"]:
+            pts = np.array([(p[0], p[1] - cut) for p in lane["points"]],
+                           np.float32)
+            if len(pts) < 2:
+                continue
+            lanes.append(pts)
+            ids.append(lane["lane_id"] - 1)
+        return lanes, ids
+
+    def _label(self, lanes, ids) -> np.ndarray:
+        c = self.cfg
+        return encode_lane_label(
+            [list(map(tuple, p[np.argsort(-p[:, 1])])) for p in lanes],
+            ids, c.lane, c.img_h, c.img_w, c.max_lanes)
 
     def __getitem__(self, idx: int) -> Dict:
-        vid = self.videos[idx]
+        vid = self.videos[idx // self.samples_per_video]
         jsonfolder = os.path.join(self.jsondir, vid)
         frames = sorted(name[:5] for name in os.listdir(jsonfolder))
+        frames = self._sample_frames(frames)
         paths = [os.path.join(self.imgdir, vid, n + ".jpg") for n in frames]
         ori_h, ori_w = jpeg_dims(paths[0])
         cut = int(ori_h * self.cfg.cut_scale)
-        imgs = self.decode(paths, cut, self.cfg.img_h, self.cfg.img_w)
-
-        labels, points = [], []
-        for name in frames:
-            with open(os.path.join(jsonfolder, name + ".jpg.json")) as f:
-                info = json.load(f)
-            lanes0, lane_ids = [], []
-            for lane in info["annotations"]["lane"]:
-                pts = np.array([(p[0], p[1] - cut) for p in lane["points"]],
-                               np.float32)
-                if len(pts) < 2:
-                    continue
-                lanes0.append(pts)
-                lane_ids.append(lane["lane_id"] - 1)
-            lanes = scale_lanes(lanes0, ori_h - cut, ori_w, self.cfg.img_h,
-                                self.cfg.img_w)
-            labels.append(encode_lane_label(
-                [list(map(tuple, p[np.argsort(-p[:, 1])])) for p in lanes],
-                lane_ids, self.cfg.lane, self.cfg.img_h, self.cfg.img_w,
-                self.cfg.max_lanes))
+        c = self.cfg
+        augment = self.augment if self.train else None
+        frames_u8 = self.decode.u8(paths) if augment else None
+        imgs, labels, points = [], [], []
+        for i, name in enumerate(frames):
+            lanes0, ids0 = self._lanes(
+                os.path.join(jsonfolder, name + ".jpg.json"), cut)
+            if augment is None:
+                lanes, ids = scale_lanes(lanes0, ori_h - cut, ori_w, c.img_h,
+                                         c.img_w), ids0
+                labels.append(self._label(lanes, ids))
+            else:
+                # the JAX reader's 30 tries (transformV4.py:241-259): each
+                # draws anew from the augmentation's generator
+                for attempt in range(30):
+                    try:
+                        img, lanes, ids = augment(frames_u8[i, cut:], lanes0,
+                                                  ids0)
+                        labels.append(self._label(lanes, ids))
+                        break
+                    except Exception:
+                        if attempt == 29:
+                            raise
+                imgs.append(normalize(img))
             points.append(lanes)
-        return {"name": vid, "frames": imgs, "labels": np.stack(labels),
+        if augment is None:
+            out = self.decode(paths, cut, c.img_h, c.img_w)
+        else:
+            out = torch.stack(imgs)
+        return {"name": vid, "frames": out, "labels": np.stack(labels),
                 "points": points, "size": (ori_h, ori_w), "cut": cut,
                 "frame_names": frames}

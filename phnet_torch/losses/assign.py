@@ -1,13 +1,15 @@
-"""Label assignment: the cost matrix and the Hungarian match, batched.
+"""Label assignment: the cost matrix, the Hungarian match and the
+dynamic-k (SimOTA) match, batched.
 
-Port of the Hungarian path of ``phnet_tpu/losses/assign.py`` (reference
-``libs/utils/dynamic_assign.py`` ``assignV2``):
+Port of the training assigners of ``phnet_tpu/losses/assign.py``
+(reference ``libs/utils/dynamic_assign.py`` ``assignV2`` and
+``dynamic_k_assign``):
 
   cost = -(distance * start_xy * theta)^2 * 3 + focal_cost
   C    = cost - pairwise_line_iou
 
 solved by :func:`phnet_torch.ops.hungarian.hungarian_assign` on the
-device. Where the JAX package vmaps one frame's ``[A, dim]`` predictions
+device, or matched by :func:`dynamic_k_frame`. Where the JAX package vmaps one frame's ``[A, dim]`` predictions
 against its ``[L, dim]`` targets, these functions take any number of
 leading problem dimensions: predictions ``[..., A, dim]``, targets
 ``[..., L, dim]``, validity ``[..., L]``. Predictions hold normalized
@@ -22,6 +24,8 @@ import torch
 
 from ..config import LaneSpec
 from ..ops.hungarian import hungarian_assign
+
+INF = 987654.0
 
 
 def line_iou_pairwise(pred_xs: torch.Tensor, target_xs: torch.Tensor,
@@ -171,9 +175,69 @@ def assign_frame(predictions: torch.Tensor, targets: torch.Tensor,
     return matched.reshape(*lead, l)
 
 
+def dynamic_k_assign(cost: torch.Tensor, iou: torch.Tensor,
+                     target_valid: torch.Tensor, n_candidate_k: int = 4
+                     ) -> torch.Tensor:
+    """SimOTA's one-to-few match (``dynamic_assign.py:83-125``; JAX
+    ``dynamic_k_assign``) of every problem of the leading dimensions:
+    cost and iou ``[..., A, L]``, validity ``[..., L]`` -> ``[..., A, L]``
+    bool. Target t takes its k_t cheapest priors left by the targets
+    before it, k_t = the truncated sum of its ``n_candidate_k`` largest
+    IoUs, at least 1; a prior left with several targets keeps only its
+    cheapest. Ties go to the lower index everywhere, as ``jax.lax.top_k``
+    and ``argmin`` break them (a stable sort here; ``torch.topk`` promises
+    no order)."""
+    a, l = cost.shape[-2:]
+    valid = target_valid[..., None, :]
+    ious = torch.where(valid, torch.maximum(iou, torch.zeros_like(iou)),
+                       0.0)
+    top = torch.topk(ious.transpose(-1, -2), n_candidate_k, dim=-1).values
+    total = top[..., 0]
+    for j in range(1, n_candidate_k):  # the largest first, in order
+        total = total + top[..., j]
+    ks = total.to(torch.int32).clamp(1, a)  # [..., L], truncated
+    work = torch.where(valid, cost, INF)
+    rank = torch.arange(a, device=cost.device)
+    cols = []
+    for t in range(l):
+        order = torch.sort(work[..., t], dim=-1, stable=True).indices
+        sel = torch.zeros_like(order, dtype=torch.bool).scatter(
+            -1, order, rank < ks[..., t, None])
+        sel = sel & target_valid[..., t, None]
+        cols.append(sel)
+        work = torch.where(sel[..., None], INF, work)
+    match = torch.stack(cols, -1)
+    multi = match.sum(-1) > 1
+    best = torch.where(valid, cost, INF).argmin(-1)  # first of equal minima
+    onehot = best[..., None] == torch.arange(l, device=cost.device)
+    return torch.where(multi[..., None],
+                       onehot & match.any(-1, keepdim=True), match)
+
+
+def dynamic_k_frame(predictions: torch.Tensor, targets: torch.Tensor,
+                    target_valid: torch.Tensor, spec: LaneSpec, img_w: int,
+                    img_h: int, n_candidate_k: int = 4) -> torch.Tensor:
+    """The dynamic-k assignment reduced to one prior a target (JAX
+    ``dynamic_k_frame``): over :func:`assign_frame`'s cost pieces,
+    :func:`dynamic_k_assign`, then each target's cheapest matched prior;
+    a valid target left with no prior takes its cheapest prior of all.
+    Returns ``matched`` ``[..., L]`` int64 (arbitrary for invalid
+    targets)."""
+    cost, iou = _cost_and_iou(predictions, targets, target_valid, spec,
+                              img_w, img_h)
+    target_valid = target_valid.expand(cost.shape[:-2] + cost.shape[-1:])
+    match = dynamic_k_assign(cost, iou, target_valid, n_candidate_k)
+    eff = torch.where(match, cost, INF)
+    eff = torch.where(match.any(-2, keepdim=True), eff, cost)
+    return eff.argmin(-2)
+
+
 def train_assign(cfg, predictions: torch.Tensor, targets: torch.Tensor,
                  target_valid: torch.Tensor) -> torch.Tensor:
-    """The training assigner of ``cfg.train_assigner``: the port has the
-    Hungarian one (``ModelConfig`` rejects the others)."""
+    """The training assigner of ``cfg.train_assigner``: "hungarian"
+    (:func:`assign_frame`) or "dynamic_k" (:func:`dynamic_k_frame`)."""
+    if cfg.train_assigner == "dynamic_k":
+        return dynamic_k_frame(predictions, targets, target_valid, cfg.lane,
+                               cfg.img_w, cfg.img_h)
     return assign_frame(predictions, targets, target_valid, cfg.lane,
                         cfg.img_w, cfg.img_h)

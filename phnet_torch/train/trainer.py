@@ -10,7 +10,8 @@ the latest periodic checkpoint, curriculum included; ``initial`` loads
 weights only. A text log (epoch, learning rate, loss) goes to
 ``workdir/log.txt``. One device: the card unless ``device="cpu"``. The
 model's compute dtype (float32, or the JAX trainers' bf16) is the
-configuration's.
+configuration's. Batches hold numpy arrays (synthetic clips) or tensors
+(the readers' train mode, frames already on the reader's device).
 """
 
 from __future__ import annotations
@@ -67,15 +68,24 @@ class TextLogger:
         self.file.close()
 
 
+def _on_device(x, dev) -> torch.Tensor:
+    """A batch's array, or tensor (the readers' train mode makes them on
+    the reader's device), on ``dev``."""
+    return (x if torch.is_tensor(x) else torch.from_numpy(x)).to(dev)
+
+
 def train(cfg: Config, dataset, loader, workdir: str,
           epochs: Optional[int] = None, resume: bool = False,
           initial: Optional[str] = None, log_every: int = 10,
-          verbose: bool = True, device=None
+          verbose: bool = True, device=None,
+          timings: Optional[List[Tuple[float, float]]] = None
           ) -> Tuple[TrainState, List[float]]:
     """Train ``cfg`` on ``loader``'s batches of ``dataset`` into
     ``workdir``. Returns the final state and each epoch's mean loss. A
     configuration that does not train (a quantized one) raises
-    ValueError before anything is built."""
+    ValueError before anything is built. ``timings``, where given, gets a
+    step's (seconds waiting for the batch, seconds from the end of the
+    last step to the loss on the host) each step."""
     check_trainable(cfg.model)
     tcfg = cfg.train
     epochs = epochs or tcfg.epochs
@@ -101,11 +111,13 @@ def train(cfg: Config, dataset, loader, workdir: str,
             t_end = time.time()
             for it, batch in enumerate(loader):
                 data_s = time.time() - t_end
-                frames = torch.from_numpy(batch["frames"]).to(dev)
-                labels = torch.from_numpy(batch["labels"]).to(dev)
+                frames = _on_device(batch["frames"], dev)
+                labels = _on_device(batch["labels"], dev)
                 state, metrics = step_fn(state, frames, labels,
                                          step_seed(tcfg.seed, state.step))
                 loss = float(metrics["loss"])
+                if timings is not None:
+                    timings.append((data_s, time.time() - t_end))
                 if not np.isfinite(loss):
                     raise FloatingPointError(f"Loss is NaN! ({loss} at step "
                                              f"{state.step})")

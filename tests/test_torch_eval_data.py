@@ -237,10 +237,14 @@ def test_read_sequences_raises_without_a_list(tmp_path):
 
 
 def test_train_mode_and_default_device_raise():
+    """Train mode reads the train split (VIL: the fixture's one train
+    video, two clips an epoch; OL: the fixture has no ``training`` split,
+    so the reader raises), and without a card the default device
+    raises."""
     vil, ol = tcfg.vil100_config().model, tcfg.openlane_config().model
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        VIL100Dataset(FIXTURE, vil, train=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    train = VIL100Dataset(FIXTURE, vil, train=True, device="cpu")
+    assert train.videos == ["1_Road010_Trim002_frames"] and len(train) == 2
+    with pytest.raises(FileNotFoundError, match="training"):
         OpenLaneDataset(FIXTURE, ol, train=True, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -60,6 +60,7 @@ def test_port_sources_exist():
             "phnet_torch/data/vil100.py", "phnet_torch/data/openlane.py",
             "phnet_torch/data/native_loader.py",
             "phnet_torch/data/transforms.py",
+            "phnet_torch/data/sampling.py",
             "phnet_torch/evaluation/culane_metric.py",
             "phnet_torch/evaluation/native_eval.py",
             "phnet_torch/evaluation/temporal.py",

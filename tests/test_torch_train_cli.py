@@ -145,14 +145,14 @@ def test_openlane_cli_resumes_each_variant(trained, tmp_path, variant):
 
 
 def test_what_is_not_ported_refuses_clearly(tmp_path):
-    """The other assigners (``train_assigner="dynamic_k"``) when the
-    config is built; quantized training in the training forward and the
-    trainer; training on the dataset itself (``--data-root``)."""
+    """An assigner the JAX trainers cannot select when the config is
+    built; quantized training in the training forward and the trainer;
+    a ``--data-root`` without the dataset, for every variant."""
     import torch
 
-    with pytest.raises(ValueError, match="dynamic_k.*not ported yet"):
+    with pytest.raises(ValueError, match="train_assigner.*'one2many'"):
         dataclasses.replace(tp.small_v3_cfg(tcfgmod),
-                            train_assigner="dynamic_k")
+                            train_assigner="one2many")
     w8 = tp.small_v3_cfg(tcfgmod, quantize="w8")
     model = tp.torch_model(w8, tp.init_variables(tp.small_v3_cfg(jcfgmod)))
     model.train()
@@ -162,14 +162,15 @@ def test_what_is_not_ported_refuses_clearly(tmp_path):
     with pytest.raises(ValueError, match="inference-only"):
         trainer.train(tcfgmod.Config(model=w8), None, None, str(tmp_path))
     for variant in ("single", "multiscale", "propagate"):
-        with pytest.raises(SystemExit, match="not ported yet; pass "
-                                             "--synthetic"):
+        with pytest.raises(SystemExit, match="no OpenLane-V at "
+                                             "/data/OpenLane/OpenLane"):
             ol_cli.main(["--data-root", "/data/OpenLane", "--variant",
                          variant])
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--data-root", "/data/OpenLane"], "not ported yet; pass --synthetic"),
+    (["--data-root", "/data/OpenLane"], "no OpenLane-V at .*; pass the "
+                                        "directory holding OpenLane/"),
     (["--synthetic", "--devices", "2"], "more than one device"),
 ])
 def test_openlane_cli_clear_errors(argv, match):

@@ -5,6 +5,7 @@ accumulation, checkpoints and resume, dropout, the synthetic labels, the
 trainer and the command line's errors."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -289,8 +290,9 @@ def test_trainer_trains_and_resumes(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--data-root", "/data/VIL100"], "not ported yet; pass --synthetic"),
-    (["--synthetic", "--assigner", "dynamic_k"], "dynamic_k"),
+    (["--data-root", "/data/VIL100"], "no VIL-100 at /data/VIL100/VIL100"),
+    (["--data-root", os.path.dirname(os.path.abspath(__file__))],
+     "no VIL-100 at .*tests/VIL100; pass the directory holding VIL100/"),
     (["--synthetic", "--devices", "2"], "more than one device"),
 ])
 def test_cli_clear_errors(argv, match):
@@ -299,8 +301,10 @@ def test_cli_clear_errors(argv, match):
 
 
 def test_config_rejects_unported_training_variants():
-    with pytest.raises(ValueError, match="dynamic_k"):
-        tcfgmod.ModelConfig(train_assigner="dynamic_k")
+    assert tcfgmod.ModelConfig(
+        train_assigner="dynamic_k").train_assigner == "dynamic_k"
+    with pytest.raises(ValueError, match="train_assigner.*'simota'"):
+        tcfgmod.ModelConfig(train_assigner="simota")
     with pytest.raises(ValueError, match="solver"):
         tcfgmod.TrainConfig(solver="lamb")
     with pytest.raises(TypeError):
