@@ -72,7 +72,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     relative perturbation of the frames, and the Hungarian matches of both
     branches equal (or no more flips than the perturbed CPU run shows);
 16. training throughput: the full-width model, 16-frame clips, B = 1 and
-    4, dropout 0.1, 1 warm-up and 2 timed steps on a fixed batch: step
+    4, dropout 0.1, 1 warm-up and 1 timed step on a fixed batch: step
     wall p50, clip-frames/s, device ms (CUDA events), peak memory, K2
     launches a step (3 a frame forward, again in the remat backward: the
     counter must read exactly that, and K1 and K3 none), then at B = 1
@@ -170,6 +170,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     resumable checkpoint and a resume: step wall p50 beside phases
     23-24's synthetic step, the loader's wait share, K2 a step.
 
+37. the JAX package's other backbones in ``vil100_config`` at full width
+    (:data:`BACKBONES`: RevCol-tiny, the Bottleneck ResNet-50, the
+    GroupNorm ResNet-18; seeded weights, RevCol's ``gamma`` widened),
+    each served at 4 streams by phase 5's schedule in float32 and bf16
+    (lane NMS once and the router chain three times a tick; one tick more
+    under the card-only profiler: device ms, launches, busy share), then
+    card against CPU on a 2-frame clip (phase 6's gates in float32, phase
+    20's in bf16, cuDNN's TF32 flag on);
+38. one clip through ``InferencePipeline`` with RevCol in float32;
+39. each backbone in training: a float32 step of a 2-frame clip card
+    against CPU (phase 15's gates; no drop path), then a timed B = 1,
+    T = 16 bf16 step (RevCol with drop path 0.1 and its column
+    checkpoint; K2 96 times a step; device ms and launches from one step
+    under the card-only profiler);
+40. RevCol's column checkpoint: float32 gradients with and without it
+    under one drop-path seed within 1e-4 of each leaf's largest entry,
+    another seed moving most leaves.
+
 Phase 18 also holds K2's bf16 mode at one stream (G = 1, the plan of a
 B = 1 training step).
 
@@ -181,7 +199,9 @@ launches in a training step beside its serving launches, and in a step
 of the VIL command line on real files, its bf16 mode's
 in a bf16 training step; each kernel's
 launches and times on the OpenLane-V paths under ``openlane_*`` keys, K1's
-at the prior-propagation head's 244 rows under ``propagate_rows_*``; K2's
+at the prior-propagation head's 244 rows under ``propagate_rows_*``, K1's
+and K2's launches on the other backbones' paths under ``revcol_*``,
+``resnet50_*`` and ``groupnorm_*``; K2's
 bf16 mode and K3 at bf16 x as entries of their own); the last line is
 ``{"ok": true, "device": {...}}``.
 Without a card, or without the package beside it, the script exits
@@ -758,7 +778,8 @@ def seeded_state_dict(torch, cfg, seed=0):
     OL's only length) is raised so kept lanes span rows. The single head
     (VIL, OL's ``Router4OL``) keeps its cls outputs in the merged heads'
     ``out0`` (the prior-propagation head also in its "_last" stacks'), the
-    multi-scale head in ``cls_fir`` / ``cls_sec``."""
+    multi-scale head in ``cls_fir`` / ``cls_sec``. RevCol's layer scales
+    ``gamma`` are drawn from N(0, 0.3)."""
     from phnet_torch.models import PHNet
 
     model = PHNet(cfg.model, device="cpu")
@@ -779,6 +800,11 @@ def seeded_state_dict(torch, cfg, seed=0):
                     / k.shape[0] ** 0.5)
             cls_bias.zero_()
             reg_bias[3] += 0.5
+        for name, p in model.named_parameters():
+            # RevCol's layer scales: the init's 1e-6 would leave every
+            # ConvNeXt block out of the comparison
+            if name.endswith(".gamma"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.3)
     return model.state_dict()
 
 
@@ -911,19 +937,45 @@ def stage_sum(w8, streams, names=tuple(n for n, _, _ in W8_PRODUCTS)):
                 bound_by=top["bound_by"])
 
 
-def preset_config(preset, quantize="none", compute_dtype="float32"):
+# the JAX package's other backbones at full width, by name: RevCol-tiny
+# (the defaults of ``BackboneConfig(kind="revcol")``), the Bottleneck
+# ResNet-50 (its stages give 256 .. 2048 channels, the neck takes the last
+# three) and the GroupNorm ResNet-18
+BACKBONES = ("revcol", "resnet50", "groupnorm")
+
+
+def with_backbone(cfg, backbone=None):
+    """``cfg`` with the backbone ``backbone`` (a name of
+    :data:`BACKBONES`; None or "resnet18" keeps the preset's
+    ResNet-18)."""
+    from phnet_torch.config import BackboneConfig
+
+    if backbone in (None, "resnet18"):
+        return cfg
+    m = cfg.model
+    fields = {"revcol": dict(kind="revcol"), "resnet50": dict(depth=50),
+              "groupnorm": dict(norm="group")}[backbone]
+    neck = m.neck
+    if backbone == "resnet50":  # a Bottleneck stage's output: 4x its width
+        neck = dataclasses.replace(neck, in_channels=(512, 1024, 2048))
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, backbone=BackboneConfig(**fields), neck=neck))
+
+
+def preset_config(preset, quantize="none", compute_dtype="float32",
+                  backbone=None):
     """``phnet_torch.config``'s preset of that name (``vil100_config``,
     ``openlane_config``, ``openlane_multiscale_config``) in ``quantize``
-    and ``compute_dtype``."""
+    and ``compute_dtype``, with ``backbone`` (:func:`with_backbone`)."""
     from phnet_torch import config
 
-    return quantized(getattr(config, preset)(compute_dtype=compute_dtype),
-                     quantize)
+    return with_backbone(quantized(getattr(config, preset)(
+        compute_dtype=compute_dtype), quantize), backbone)
 
 
 def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
                   warmup=2, preset="vil100_config", compute_dtype="float32",
-                  streams=4):
+                  streams=4, backbone=None):
     """``StreamingServer`` at the preset's full width in ``compute_dtype``,
     ``streams`` streams, the last of them skipping every third tick, then
     a detach and an attach; the kernels' counters are zeroed just before
@@ -932,17 +984,22 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
     heads but the prior-propagation one; in its bf16 mode above 8 streams,
     as the server resolves it, and in its float32 mode otherwise) and
     never where it has not, and K3 once a generator product in w8 and
-    never otherwise. Returns the launches and the tick's numbers."""
+    never otherwise. With ``backbone`` (:data:`BACKBONES`) one tick more,
+    after the counters are read, runs under the profiler of the card's
+    activity alone: launches and device ms a tick, and the busy share
+    (device ms over the tick's wall p50). Returns the launches and the
+    tick's numbers."""
     from phnet_torch.ops import nms as tnms
     from phnet_torch.ops import router_chain as trc
     from phnet_torch.ops import w8_matmul as tw8
     from phnet_torch.serving import StreamingServer
 
-    cfg = preset_config(preset, quantize, compute_dtype)
+    cfg = preset_config(preset, quantize, compute_dtype, backbone)
     mcfg = cfg.model
     vil = preset == "vil100_config"
     name = "serving" if vil else f"serving {preset.replace('_config', '')}"
     tag = " ".join([name] + [t for t in (
+        backbone or "",
         quantize if quantize != "none" else "",
         "bf16" if compute_dtype == "bfloat16" else "",
         f"{streams} streams" if streams != 4 else "") if t])
@@ -1039,13 +1096,21 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
           f"frames/s aggregate, peak device memory "
           f"{numbers['peak_mib']:.1f} MiB [{card}]")
     print(f"[{tag}] stats {json.dumps(server.stats())}")
+    if backbone is not None:
+        n_k, k_ms = cuda_kernels(torch, lambda: tick(0, sids))
+        numbers.update(launches=n_k, device_ms=k_ms,
+                       busy=k_ms / numbers["tick_p50_ms"])
+        print(f"[{tag}] one tick of {streams} streams under the profiler "
+              f"(card activity only): {n_k} kernel launches, device kernel "
+              f"time {k_ms:.2f} ms (busy {numbers['busy']:.3f} of the "
+              f"unprofiled tick p50) [{card}]")
     return {"lane_nms": k1, "router_chain": k2, "router_chain_bf16": k2b,
             "w8_matmul": k3, **numbers}
 
 
 def phase_end_to_end(torch, card, state_dict, quantize="none",
                      preset="vil100_config", compute_dtype="float32",
-                     chain_bf16=None, frames=2):
+                     chain_bf16=None, frames=2, backbone=None):
     """The same weights, a clip of ``frames`` frames of the preset, on the
     card and on the CPU. Float32: routed predictions within 1e-3, keep
     sets equal. With prior propagation the carry must reach a later frame
@@ -1079,7 +1144,7 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
     from phnet_torch.models import PHNet
     from phnet_torch.models.phnet import init_memory
 
-    mcfg = preset_config(preset, quantize, compute_dtype).model
+    mcfg = preset_config(preset, quantize, compute_dtype, backbone).model
     if chain_bf16 is not None:
         mcfg = dataclasses.replace(mcfg, head=dataclasses.replace(
             mcfg.head, router_chain_bf16=chain_bf16))
@@ -1087,7 +1152,7 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
     tag = "end-to-end" if preset == "vil100_config" else (
         f"end-to-end {preset.replace('_config', '')}")
     tag = " ".join([tag] + [t for t in (
-        quantize if quantize != "none" else "",
+        backbone or "", quantize if quantize != "none" else "",
         "bf16" if compute_dtype == "bfloat16" else "",
         "bf16 chain" if chain_bf16 else "") if t])
     n_frames = frames
@@ -1218,10 +1283,11 @@ def check_bf16_end_to_end(tag, card, results, n_frames=2):
 
 
 def phase_pipeline(torch, card, state_dict, quantize="w8", clips=2,
-                   frames_per_clip=6, chunk=4):
+                   frames_per_clip=6, chunk=4, backbone=None):
     """``InferencePipeline`` over seeded in-memory clips (the pipeline's
-    duck-typed dataset), ``.lines.txt`` into a temporary directory. The
-    counters are zeroed just before and read just after."""
+    duck-typed dataset), ``.lines.txt`` into a temporary directory, with
+    ``backbone`` (:func:`with_backbone`). The counters are zeroed just
+    before and read just after."""
     from phnet_torch.config import vil100_config
     from phnet_torch.evaluation.emit import read_lines_txt
     from phnet_torch.ops import nms as tnms
@@ -1229,7 +1295,7 @@ def phase_pipeline(torch, card, state_dict, quantize="w8", clips=2,
     from phnet_torch.ops import w8_matmul as tw8
     from phnet_torch.pipeline import InferencePipeline
 
-    cfg = quantized(vil100_config(), quantize)
+    cfg = with_backbone(quantized(vil100_config(), quantize), backbone)
     mcfg = cfg.model
     rng = np.random.default_rng(5)
     data = [{"frames": rng.normal(size=(frames_per_clip, mcfg.img_h,
@@ -1260,7 +1326,8 @@ def phase_pipeline(torch, card, state_dict, quantize="w8", clips=2,
                                     and k3 < per_frame * run):
         raise AssertionError(f"pipeline launches lane_nms {k1}, router_chain"
                              f" {k2}, w8_matmul {k3} over {run} frames")
-    print(f"[pipeline {quantize}] {clips} clips x {frames_per_clip} frames "
+    tag = " ".join(t for t in ("pipeline", backbone, quantize) if t)
+    print(f"[{tag}] {clips} clips x {frames_per_clip} frames "
           f"in chunks of {chunk} ({run} frames run with padding): "
           f"{len(files)} .lines.txt files, {n_lanes} lanes; launches "
           f"lane_nms {k1}, router_chain {k2}, w8_matmul {k3}; "
@@ -1315,17 +1382,36 @@ HEAD_LEAVES = {
         "head.temporal_decoder_last.layers.0.ffn2.weight",
         "head.heads_fir_last.fc0_kernel", "head.heads_sec_last.out1_kernel",
         "head.heads_sec.out1_kernel")}
+# the backbone leaves held card against CPU for the other backbones (the
+# head's are TRAIN_LEAVES[2:])
+BACKBONE_LEAVES = {
+    "revcol": ("encoder.backbone.stem_conv.weight",
+               "encoder.backbone.subnet0.level0.block0.dwconv.weight",
+               "encoder.backbone.subnet1.alpha2",
+               "encoder.backbone.subnet2.level1.fusion.up_proj.weight",
+               "encoder.backbone.subnet3.level3.block1.pw2.weight",
+               "encoder.backbone.subnet3.level2.block3.gamma"),
+    "resnet50": ("encoder.backbone.conv0.weight",
+                 "encoder.backbone.bn0.weight",
+                 "encoder.backbone.blocks.0.conv3.weight",
+                 "encoder.backbone.blocks.15.conv2.weight",
+                 "encoder.backbone.blocks.15.bn2.bias"),
+    "groupnorm": ("encoder.backbone.conv0.weight",
+                  "encoder.backbone.bn0.weight",
+                  "encoder.backbone.blocks.2.bn2.weight",
+                  "encoder.backbone.blocks.7.bn1.bias")}
 PROFILE_RANGES = ("hungarian_assign", "router_chain_backward")
 
 
 def train_config(dropout, preset="vil100_config", compute_dtype="float32",
-                 chain_f32=False, remat=True, **train):
+                 chain_f32=False, remat=True, backbone=None, **train):
     """The full-width training configuration of ``preset`` with decoder
     dropout ``dropout``, the compute dtype, ``router_train_chain_f32``,
-    remat and ``train`` overrides."""
+    remat, ``backbone`` (:func:`with_backbone`; RevCol with its default
+    drop path 0.1 and column checkpoint) and ``train`` overrides."""
     from phnet_torch import config as tconfig
 
-    cfg = getattr(tconfig, preset)()
+    cfg = with_backbone(getattr(tconfig, preset)(), backbone)
     head = dataclasses.replace(cfg.model.head, decoder_dropout=dropout,
                                router_train_chain_f32=chain_f32)
     return dataclasses.replace(
@@ -1435,17 +1521,21 @@ def free_matches(torch, cfg, frames, labels, device):
 
 
 def phase_train_parity(torch, card, preset="vil100_config",
-                       frames_per_clip=4):
+                       frames_per_clip=4, backbone=None):
     """One float32 training step of ``preset`` card against CPU at full
-    width, B=1, T=4; the bounds are the CPU's own spread under a 1e-6
-    relative perturbation of the frames, four times over, and no tighter
+    width, B=1, T = ``frames_per_clip``; the bounds are the CPU's own
+    spread under a 1e-6 relative perturbation of the frames, four times
+    over, and no tighter
     than 2e-5 relative for the loss, 1e-4 for the gradient norm and 2e-3
     of each leaf's largest entry (float32 sums in other orders, atomics on
     the card). K2's float32 instance launches 3 times a frame, again in
     the remat recompute, its bf16 mode never. Returns the card's K2
-    launches."""
-    cfg = train_config(0.0, preset)
+    launches. ``backbone``: another backbone (:func:`with_backbone`),
+    without drop path (no seed reaches the step)."""
+    cfg = train_config(0.0, preset, backbone=backbone)
     leaves = HEAD_LEAVES.get(preset, TRAIN_LEAVES)
+    if backbone is not None:
+        leaves = BACKBONE_LEAVES[backbone] + TRAIN_LEAVES[2:]
     frames, labels = synthetic_batch(torch, cfg, 1, frames_per_clip)
     pert = frames * (1.0 + 1e-6 * torch.from_numpy(np.random.default_rng(
         7).normal(size=tuple(frames.shape)).astype(np.float32)))
@@ -1485,7 +1575,8 @@ def phase_train_parity(torch, card, preset="vil100_config",
         raise AssertionError(f"training card vs CPU: {flips} Hungarian "
                              f"matches differ, the perturbed CPU run "
                              f"{own_flips}")
-    print(f"[train card vs CPU] {preset}, full width, 1 clip x "
+    print(f"[train card vs CPU] {preset}{' ' + backbone if backbone else ''}"
+          f", full width, 1 clip x "
           f"{frames_per_clip} frames, dropout 0, cuDNN TF32 flag "
           f"{torch.backends.cudnn.allow_tf32} around the step: "
           + "; ".join(report) + f"; {len(leaves)} gradient leaves, "
@@ -1700,23 +1791,33 @@ def profile_steps(torch, fn, steps=1, group_of=None):
 def cuda_kernels(torch, fn):
     """(launches, device kernel ms) of one fn() call under
     ``torch.profiler`` with the card's activity alone: no host events to
-    process, a fraction of :func:`profile_steps`' time."""
+    process, a fraction of :func:`profile_steps`' time. It reads the
+    profiler's raw events, the ones ``prof.events()`` would keep (not
+    hidden, not a user range, not a name the event list filters out):
+    the event list builds a Python object a kernel, some 20 s for a
+    training step's ~190k."""
+    from torch.autograd import DeviceType
+    from torch.autograd import profiler as autograd_profiler
+
+    dropped = getattr(autograd_profiler, "_filter_name", lambda name: False)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and not e.is_user_annotation()
+               and not getattr(e, "is_hidden_event", lambda: False)()
+               and not dropped(e.name())]
     if not kernels:
         raise AssertionError("the profiler recorded no kernel of the step")
-    return len(kernels), sum(e.time_range.elapsed_us()
-                             for e in kernels) / 1e3
+    return len(kernels), sum(e.duration_ns() for e in kernels) / 1e6
 
 
 def phase_train_throughput(torch, card, batches=(1, 4), frames_per_clip=16,
                            warmup=1, timed=3, preset="vil100_config",
-                           compute_dtype="float32", counted=(1,)):
+                           compute_dtype="float32", counted=(1,),
+                           backbone=None):
     """Training steps of ``preset`` in ``compute_dtype`` on a fixed batch at
     full width; at the batch sizes in ``counted`` one step more under the
     profiler of the card's activity alone (:func:`cuda_kernels`: launches
@@ -1731,8 +1832,9 @@ def phase_train_throughput(torch, card, batches=(1, 4), frames_per_clip=16,
     from phnet_torch.train.state import create_train_state
     from phnet_torch.train.step import make_train_step, step_seed
 
-    cfg = train_config(0.1, preset, compute_dtype=compute_dtype)
-    tag = f"train {preset} {compute_dtype}"
+    cfg = train_config(0.1, preset, compute_dtype=compute_dtype,
+                       backbone=backbone)
+    tag = " ".join(t for t in ("train", preset, backbone, compute_dtype) if t)
     crit = LaneCriterion(cfg.model, cfg.train.loss)
     step = make_train_step(crit, cfg.train.accum_steps)
     bf16_chain = chain_bf16_in_training(cfg)
@@ -1958,7 +2060,7 @@ def phase_train_heads(torch, card, frames_per_clip=2):
     finally:
         torch.backends.cudnn.allow_tf32 = False
     out = {preset: phase_train_throughput(
-        torch, card, batches=(1,), timed=2, preset=preset,
+        torch, card, batches=(1,), timed=1, preset=preset,
         compute_dtype="bfloat16")[1]
         for preset in (MULTISCALE, PROPAGATE)}
     for variant in ("multiscale", "propagate"):
@@ -2608,6 +2710,126 @@ def phase_train_cli(torch, card, tree, synthetic):
     return out
 
 
+def phase_backbones(torch, card, ticks=8):
+    """Phase 37: ``vil100_config`` with each of :data:`BACKBONES` at full
+    width (seeded weights, RevCol's ``gamma`` widened), served at 4
+    streams by phase 5's schedule in float32 and bf16 (lane NMS once and
+    the router chain three times a tick, counters zeroed just before and
+    read just after; one tick more under the card-only profiler), then a
+    2-frame clip card against CPU (phase 6's gates in float32, phase 20's
+    in bf16, cuDNN's TF32 flag on). The preset's ResNet-18 is served
+    first, the same way, for the profiled tick beside theirs (phases 6 and
+    20 hold it card against CPU). Returns the serving numbers by
+    (backbone, compute dtype)."""
+    from phnet_torch.config import vil100_config
+
+    out = {}
+    for backbone in ("resnet18",) + BACKBONES:
+        state_dict = seeded_state_dict(torch, with_backbone(
+            vil100_config(), backbone))
+        for dtype in ("float32", "bfloat16"):
+            out[(backbone, dtype)] = phase_serving(
+                torch, card, state_dict, ticks=ticks, compute_dtype=dtype,
+                backbone=backbone)
+            if backbone == "resnet18":
+                continue
+            torch.backends.cudnn.allow_tf32 = True  # a user's default
+            try:
+                phase_end_to_end(torch, card, state_dict, compute_dtype=dtype,
+                                 backbone=backbone)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+        del state_dict
+    return out
+
+
+def phase_train_backbones(torch, card):
+    """Phase 39: each of :data:`BACKBONES` in training at full width: a
+    float32 step of a 2-frame clip card against CPU (phase 15's gates,
+    cuDNN's TF32 flag on), then a timed B = 1, T = 16 bf16 step (the VIL
+    trainer's default; RevCol with drop path 0.1 and its column
+    checkpoint): K2 96 times a step, device ms, launches and busy share
+    from one step under the card-only profiler, wall p50, peak memory
+    (the preset's ResNet-18 has phase 23's step, by the same function in
+    the same run). Returns the throughput numbers by backbone."""
+    torch.backends.cudnn.allow_tf32 = True  # a user's default
+    try:
+        for backbone in BACKBONES:
+            phase_train_parity(torch, card, frames_per_clip=2,
+                               backbone=backbone)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return {backbone: phase_train_throughput(
+        torch, card, batches=(1,), timed=1, compute_dtype="bfloat16",
+        backbone=backbone)[1] for backbone in BACKBONES}
+
+
+def phase_revcol_checkpoint(torch, card, frames_per_clip=2, seeds=(5, 6)):
+    """Phase 40: RevCol's column checkpoint on the card: float32 steps of
+    a 2-frame clip at full width with drop path 0.1 and the dropout seed
+    ``seeds[0]``, every column but the first recomputed in the backward
+    (``revcol_save_memory``) and not: the backbone's gradients agree
+    within 1e-4 of each leaf's largest entry (the recompute draws the
+    same masks from the seed; cuDNN's backward sums in an order of its
+    own), while the seed ``seeds[1]`` moves most leaves by more than 1e-2
+    of their largest entry. ``gamma`` is drawn from N(0, 0.3), as in the
+    served weights, so that a block's drop changes the ones after it.
+    Peak memory of both."""
+    from phnet_torch.device import full_f32
+    from phnet_torch.losses import LaneCriterion
+    from phnet_torch.train.state import create_train_state
+
+    def grads(save_memory, seed):
+        cfg = train_config(0.0, backbone="revcol")
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, backbone=dataclasses.replace(
+                cfg.model.backbone, revcol_save_memory=save_memory)))
+        frames, labels = synthetic_batch(torch, cfg, 1, frames_per_clip)
+        state = create_train_state(cfg, 100, "cuda", seed=0)
+        state.model.load_state_dict(weights)
+        crit = LaneCriterion(cfg.model, cfg.train.loss)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with full_f32():
+            outs, _ = state.model.train_forward(frames.cuda(),
+                                                labels.cuda(), seed)
+            loss, _ = crit(outs, labels.cuda())
+            loss.backward()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        return ({n: p.grad.float().cpu() for n, p in
+                 state.model.named_parameters()
+                 if n.startswith("encoder.backbone.")}, peak)
+
+    weights = seeded_state_dict(torch, train_config(0.0, backbone="revcol"))
+    t0 = time.perf_counter()
+    (remat, peak_remat), (plain, peak_plain), (other, _) = (
+        grads(True, seeds[0]), grads(False, seeds[0]), grads(True, seeds[1]))
+    worst, moved = 0.0, 0
+    for n, g in remat.items():
+        scale = g.abs().max().item() + 1e-12
+        worst = max(worst, (g - plain[n]).abs().max().item() / scale)
+        moved += (other[n] - g).abs().max().item() > 1e-2 * scale
+    if not worst <= 1e-4 or moved <= len(remat) // 2:
+        raise AssertionError(f"RevCol column checkpoint: gradients "
+                             f"{worst} of a leaf's largest entry apart "
+                             f"(<= 1e-4); another seed moved {moved} of "
+                             f"{len(remat)} leaves by > 1e-2")
+    print(f"[revcol checkpoint] full width, 1 clip x {frames_per_clip} "
+          f"frames, float32, drop path 0.1, seed {seeds[0]}: backbone "
+          f"gradients with and without the column checkpoint at most "
+          f"{worst:.3g} of a leaf's largest entry apart (<= 1e-4); seed "
+          f"{seeds[1]} moves {moved} of {len(remat)} leaves by > 1e-2; peak "
+          f"device memory {peak_remat:.1f} MiB checkpointed, "
+          f"{peak_plain:.1f} MiB not; {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+
+
+def lap(t0, tag):
+    """Print the seconds since the script started, after ``tag``."""
+    print(f"[time] {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2641,23 +2863,29 @@ def main() -> int:
     phase_serving(torch, card, state_dict, quantize="int8")
     phase_end_to_end(torch, card, state_dict, quantize="w8")
     phase_pipeline(torch, card, state_dict)
+    lap(t0, "phases 1-10")
     nms_ol = phase_nms(torch, card, layout="openlane")
     ms_products = w8_products(preset_config("openlane_multiscale_config"))
     w8_ms = phase_w8(torch, card, ms_products,
                      tag="w8_matmul openlane_multiscale", ragged=False)
     ol = phase_openlane(torch, card)
+    lap(t0, "phases 11-14")
     torch.backends.cudnn.allow_tf32 = True  # a user's default
     try:
         phase_train_parity(torch, card)
     finally:
         torch.backends.cudnn.allow_tf32 = False
-    # two timed steps a size (as phase 29), 2-frame clips in phase 24: the
-    # smoke's time limit (phase 36 covers the OL command line at T = 16)
-    training = phase_train_throughput(torch, card, timed=2)
+    # the smoke's time limit: one timed step a size (as phases 29 and 39),
+    # 2-frame clips in phase 24 (phase 36 covers the OL command line at
+    # T = 16); phase 15's f32 step keeps 4 frames (at 2 the card's FPN
+    # gradient came out 1.005 times its bound)
+    training = phase_train_throughput(torch, card, timed=1)
     phase_trainer(torch, card)
+    lap(t0, "phases 15-17")
     chain_bf16 = phase_router_bf16(torch, card)
     w8_bf16x = phase_w8_bf16x(torch, card)
     bf16 = phase_bf16(torch, card)
+    lap(t0, "phases 18-20")
     torch.backends.cudnn.allow_tf32 = True  # a user's default
     try:
         phase_train_parity_bf16(torch, card)
@@ -2667,16 +2895,18 @@ def main() -> int:
         phase_train_parity_bf16(torch, card, "openlane_config")
     finally:
         torch.backends.cudnn.allow_tf32 = False
-    training_bf16 = phase_train_throughput(torch, card, timed=2,
+    training_bf16 = phase_train_throughput(torch, card, timed=1,
                                            compute_dtype="bfloat16")
     training_ol = phase_train_throughput(
-        torch, card, batches=(1,), timed=2, preset="openlane_config",
+        torch, card, batches=(1,), timed=1, preset="openlane_config",
         compute_dtype="bfloat16", counted=())
     phase_trainer_openlane(torch, card, frames_per_clip=2)
+    lap(t0, "phases 21-24")
     nms_v3 = phase_nms(torch, card, layout="openlane", a=244)
     v3 = phase_propagate(torch, card)
     ms_bf16 = phase_multiscale_bf16(torch, card)
     train_heads = phase_train_heads(torch, card)
+    lap(t0, "phases 25-29")
     phase_host_build()
     readers = phase_readers(torch, card)
     phase_eval_pipeline(torch, card, state_dict, readers["vil"]["clips"])
@@ -2689,6 +2919,14 @@ def main() -> int:
         train_cli = phase_train_cli(torch, card, tree, synthetic={
             "vil": training_bf16[1]["step_p50_ms"],
             "ol": training_ol[1]["step_p50_ms"]})
+    lap(t0, "phases 30-36")
+    backbones = phase_backbones(torch, card)
+    backbone_pipe = phase_pipeline(torch, card, seeded_state_dict(
+        torch, with_backbone(vil100_config(), "revcol")), quantize="none",
+        clips=1, backbone="revcol")
+    train_backbones = phase_train_backbones(torch, card)
+    phase_revcol_checkpoint(torch, card)
+    lap(t0, "phases 37-40")
 
     w8_ms_frame = stage_sum(w8_ms, 4, [name for name, _, _ in ms_products])
     single, multi = "openlane_config", "openlane_multiscale_config"
@@ -2748,6 +2986,16 @@ def main() -> int:
             kernels[-1]["real_data_training_launches"] = \
                 train_cli["vil dynamic_k"]["k2_per_step"]
         kernels[-1].update(ol_keys[name])
+        # the other backbones' paths (phases 37-39): served in float32 and
+        # bf16, the RevCol pipeline, a bf16 training step
+        for (backbone, dtype), n in backbones.items():
+            kernels[-1][f"{backbone}_{'bf16_' if dtype == 'bfloat16' else ''}"
+                        f"launches"] = n[name]
+        kernels[-1]["revcol_pipeline_launches"] = backbone_pipe[name]
+        if name == "router_chain":
+            for backbone, n in train_backbones.items():
+                kernels[-1][f"{backbone}_training_launches"] = \
+                    n["k2_launches"]
     for name, base, numbers, source, count in (  # the bf16 paths' entries
             ("router_chain_bf16", "router_chain",
              dict(chain_bf16[16], library_ms=None),
@@ -2778,6 +3026,19 @@ def main() -> int:
         f"{n['device_ms'] / n['step_p50_ms']:.3f}, "
         f"peak {n['peak_mib']:.1f} MiB, wall p50 {n['step_p50_ms']:.1f} ms"
         for p, n in train_heads.items()) + f" [{card}]")
+    print(f"[backbones] served (4 streams, tick p50 / p99 ms, device ms a "
+          f"tick, launches, busy, peak MiB): " + "; ".join(
+              f"{b} {d}: {n['tick_p50_ms']:.1f} / {n['tick_p99_ms']:.1f}, "
+              f"{n['device_ms']:.2f}, {n['launches']}, {n['busy']:.3f}, "
+              f"{n['peak_mib']:.0f}" for (b, d), n in backbones.items())
+          + f" [{card}]")
+    print(f"[backbones] B=1 T=16 bf16 steps: " + "; ".join(
+        f"{b}: {n['device_ms']:.1f} ms device (profiled step), "
+        f"{n['launches']} launches, busy "
+        f"{n['device_ms'] / n['step_p50_ms']:.3f}, peak "
+        f"{n['peak_mib']:.1f} MiB, wall p50 {n['step_p50_ms']:.1f} ms"
+        for b, n in {"resnet18 (phase 23)": training_bf16[1],
+                     **train_backbones}.items()) + f" [{card}]")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,12 @@ training (:class:`TrainConfig`, :class:`LossConfig`,
 ``HeadConfig.decoder_dropout`` and ``router_train_chain_f32``,
 ``ModelConfig.train_assigner`` with the Hungarian and dynamic-k
 assigners, ``ModelConfig.remat_frames``, and the readers' sampling
-``TrainConfig.max_skip`` and ``samples_per_video``). Fields that only
+``TrainConfig.max_skip`` and ``samples_per_video``), with every
+backbone of :class:`BackboneConfig` (ResNet-18, -34 and the Bottleneck
+ResNet-50, with BatchNorm or GroupNorm, and RevCol). Fields that only
 selected TPU formulations
-of the same function (stem packing, router chain layouts and kernels,
+of the same function (the stems and the max pool's backward, router
+chain layouts and kernels,
 stage-0 hoisting, dual-branch head stacking, remat policies, scan unroll,
 the flat-matrix AdamW) are gone, and so are ``DataConfig`` (the readers
 take the frame size, cut and crop from the ``ModelConfig``) and
@@ -93,13 +96,51 @@ class LaneSpec:
         return self.header_dim
 
 
+BACKBONE_KINDS = ("resnet", "revcol")
+RESNET_DEPTHS = (18, 34, 50)
+BACKBONE_NORMS = ("batch", "group")
+
+
 @dataclass(frozen=True)
 class BackboneConfig:
-    """BasicBlock ResNet with BatchNorm and the 7x7/s2 stem."""
+    """The backbone: a ResNet with the 7x7/s2 stem (``kind="resnet"``:
+    BasicBlocks at depth 18 and 34, Bottlenecks at 50; BatchNorm, or
+    flax's GroupNorm with ``norm="group"``), or RevCol (``kind="revcol"``,
+    the reference's ``revcolV2.py``; ``revcol_tiny`` by default: columns
+    of ConvNeXt blocks, ``in_channels`` wide per level). ``in_channels``
+    are the stages' widths, a Bottleneck stage's output being four times
+    its width. The JAX package's ``norm="batch_flax"`` is the same
+    BatchNorm (same parameters, same function): its trees load into
+    ``norm="batch"``. Its ``stem`` and ``pool_vjp`` only choose how the
+    same function is computed and are not ported."""
 
+    kind: str = "resnet"
     depth: int = 18
     in_channels: Tuple[int, ...] = (64, 128, 256, 512)
+    norm: str = "batch"
     out_indices: Tuple[int, ...] = (1, 2, 3)
+    revcol_layers: Tuple[int, ...] = (2, 2, 4, 2)
+    revcol_num_subnet: int = 4
+    revcol_drop_path: float = 0.1
+    revcol_save_memory: bool = True
+
+    def __post_init__(self):
+        if self.kind not in BACKBONE_KINDS:
+            raise ValueError(f"backbone kind must be one of {BACKBONE_KINDS},"
+                             f" got {self.kind!r}")
+        if self.kind == "resnet" and self.depth not in RESNET_DEPTHS:
+            raise ValueError(f"ResNet depth must be one of {RESNET_DEPTHS}, "
+                             f"got {self.depth!r}")
+        if self.norm not in BACKBONE_NORMS:
+            raise ValueError(f"backbone norm must be one of {BACKBONE_NORMS}"
+                             f" (load a 'batch_flax' tree as 'batch'), got "
+                             f"{self.norm!r}")
+        if len(self.in_channels) != 4 or (
+                self.kind == "revcol" and (len(self.revcol_layers) != 4
+                                           or self.revcol_num_subnet < 1)):
+            raise ValueError("the backbone takes four stage widths (and "
+                             "RevCol four level depths and one column or "
+                             "more)")
 
 
 @dataclass(frozen=True)

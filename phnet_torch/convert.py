@@ -3,18 +3,21 @@ to the port's ``state_dict``.
 
 The tree is nested dicts of numpy arrays (``{"params": ...,
 "batch_stats": ...}``). Module paths are renamed to the port's
-(``BasicBlock_3`` -> ``blocks.3``, ``Norm_1/BatchNorm_0`` -> ``bn1``,
-``dyn_head_0`` -> ``dyn_heads.0``, ``layer1`` -> ``layers.1``, the
-prior-propagation head's ``mlp_router_0`` -> ``mlp_routers.0`` ...; its
-"_last" stacks and decoder keep their names) and leaves are laid out for
-PyTorch:
+(``BasicBlock_3`` and ``Bottleneck_3`` -> ``blocks.3``,
+``Norm_1/BatchNorm_0`` and ``Norm_1/GroupNorm_0`` -> ``bn1``, the
+``i``-th norm of a block whichever its kind, ``dyn_head_0`` ->
+``dyn_heads.0``, ``layer1`` -> ``layers.1``, the prior-propagation head's
+``mlp_router_0`` -> ``mlp_routers.0`` ...; RevCol's modules, the
+prior-propagation head's "_last" stacks and decoder keep their names)
+and leaves are laid out for PyTorch:
 
 * Dense / linear ``kernel [in, out]`` -> ``weight [out, in]`` (this covers
   the DynamicConv ``gen1_a .. out_b`` pairs, the router's ``Dense_0/1`` and
   the fused ``qkv`` / ``q`` + ``kv`` attention projections, whose packed
   output order the port keeps, and the MLP routers' ``fc0`` / ``fc1`` /
   ``out``);
-* conv ``kernel`` HWIO -> ``weight`` OIHW, and a 1-D conv's (the
+* conv ``kernel`` HWIO -> ``weight`` OIHW (RevCol's depthwise ``dwconv``
+  ``[3, 3, 1, C]`` -> ``[C, 1, 3, 3]``), and a 1-D conv's (the
   multi-scale router's ``conv1`` / ``conv2``) ``[k, in, out]`` -> ``[out,
   in, k]``;
 * BatchNorm, LayerNorm and GroupNorm ``scale`` -> ``weight``; BatchNorm
@@ -36,8 +39,8 @@ import torch
 _PATH_RULES = [
     (r"^(params|batch_stats)/encoder/", "encoder/"),
     (r"^params/frame/head/", "head/"),
-    (r"BasicBlock_(\d+)", r"blocks/\1"),
-    (r"Norm_(\d+)/BatchNorm_0", r"bn\1"),
+    (r"(?:BasicBlock|Bottleneck)_(\d+)", r"blocks/\1"),
+    (r"Norm_(\d+)/(?:BatchNorm|GroupNorm)_0", r"bn\1"),
     (r"Conv_(\d+)", r"conv\1"),
     (r"lateral_(\d+)", r"lateral/\1"),
     (r"fpn_(\d+)", r"fpn/\1"),

@@ -32,27 +32,8 @@ from ..ops.sampler import bilinear_sample
 from .dynamic_conv import DynamicConv
 from .head import AnchorHead, sample_x_indices
 from .positional import AnchorPositionalEncoding
-from .resnet import lecun_normal_
+from .resnet import GN_EPS, GroupNorm, lecun_normal_
 from .transformer import TemporalDecoder
-
-GN_EPS = 1e-6  # flax nn.GroupNorm default
-
-
-class GroupNorm(nn.GroupNorm):
-    """flax's ``nn.GroupNorm`` over [N, C, L]: statistics per sample and
-    group by the fast variance ``max(0, E[x^2] - E[x]^2)``, then
-    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, c, l = x.shape
-        g = self.num_groups
-        xg = x.reshape(n, g, -1)
-        mean = xg.mean(-1)
-        var = torch.clamp((xg * xg).mean(-1) - mean * mean, min=0.0)
-        rep = lambda t: t.repeat_interleave(c // g, dim=1)[..., None]  # noqa: E731
-        mul = rep(torch.rsqrt(var + self.eps)) * self.weight[:, None]
-        return (x - rep(mean)) * mul + self.bias[:, None]
-
 
 class ConvRouter(nn.Module):
     """Router of one multi-scale stage (``AdaptiveRouter4LaneV2``,

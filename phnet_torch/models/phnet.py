@@ -25,11 +25,12 @@ the kept rows (the first K keeps) and their routed predictions. With
 predictions that reach lane NMS are float32.
 
 Training (:meth:`PHNet.train_forward`, the model in train mode): BatchNorm
-on batch statistics, decoder dropout, and per frame one batched Hungarian
-solve on the detached predictions of both branches and every stage. The
-ring takes, per stage, the features of that stage's own second-branch
-matches (the labels' valid column marks the slots), with their gradient,
-at ``t % window`` (VIL's ring holds the clip, OL's wraps every 5 frames);
+on batch statistics, decoder dropout, RevCol's drop path, and per frame
+one batched Hungarian solve on the detached predictions of both branches
+and every stage. The ring takes, per stage, the features of that stage's
+own second-branch matches (the labels' valid column marks the slots),
+with their gradient, at ``t % window`` (VIL's ring holds the clip, OL's
+wraps every 5 frames);
 the one-frame carry takes the last stage's second-branch matches at every
 stage, detached, and their detached predictions, with the labels' valid
 column as its mask. The JAX package clips an unmatched index (-1) to row
@@ -237,10 +238,13 @@ class PHNet(nn.Module):
             self.head.reset_parameters(g)
 
     @full_f32()
-    def encode(self, frames: torch.Tensor):
-        """Backbone + FPN over all clip frames; tuple of [T, B, h, w, c]."""
+    def encode(self, frames: torch.Tensor, seed: Optional[int] = None):
+        """Backbone + FPN over all clip frames; tuple of [T, B, h, w, c].
+        ``seed`` seeds RevCol's drop path in train mode (one mask an image
+        of the B * T batch and block, as the JAX encoder draws them)."""
         b, t = frames.shape[:2]
-        feats = self.encoder(frames.reshape((b * t,) + frames.shape[2:]))
+        feats = self.encoder(frames.reshape((b * t,) + frames.shape[2:]),
+                             seed)
         return tuple(f.reshape((b, t) + f.shape[1:]).transpose(0, 1)
                      for f in feats)
 
@@ -320,11 +324,11 @@ class PHNet(nn.Module):
         """The training forward over a clip: frames [B, T, H, W, 3],
         labels [B, T, L, dim] (the label encoder's layout). Train mode
         gives BatchNorm on batch statistics (updating the running ones)
-        and, with a ``dropout_seed``, decoder dropout. Returns
-        (:class:`TrainFrameOut`, final memory)."""
+        and, with a ``dropout_seed``, decoder dropout and RevCol's drop
+        path. Returns (:class:`TrainFrameOut`, final memory)."""
         cfg = self.cfg
         check_trainable(cfg)
-        feats = self.encode(frames)
+        feats = self.encode(frames, dropout_seed)
         t, b = feats[0].shape[:2]
         s, window = cfg.head.refine_layers, (
             cfg.memory.window if cfg.memory.window > 0 else t)

@@ -97,7 +97,7 @@ def load_weights(cfg, args, dataset, device) -> Dict[str, torch.Tensor]:
 
         clip = first_clip(dataset)
         frames = torch.as_tensor(clip["frames"])[None].to(
-            state.model.encoder.backbone.conv0.weight.device)
+            next(state.model.parameters()).device)
         labels = torch.from_numpy(clip["labels"])[None].to(frames.device)
         step = make_train_step(LaneCriterion(cfg.model, cfg.train.loss))
         for i in range(train_first):

@@ -27,6 +27,10 @@ def _split(model) -> Dict[str, Dict[str, torch.Tensor]]:
             "batch_stats": {k: v for k, v in sd.items() if k in buffers}}
 
 
+def _device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
 class CheckpointManager:
     def __init__(self, directory: str):
         self.dir = os.path.abspath(directory)
@@ -68,8 +72,7 @@ class CheckpointManager:
     def restore_state(self, state: TrainState, name=None):
         """Resume everything: returns (state, epoch to start from,
         max_skip)."""
-        payload = self.restore(name, state.model.encoder.backbone.conv0
-                               .weight.device)
+        payload = self.restore(name, _device(state.model))
         state.model.load_state_dict({**payload["params"],
                                      **payload["batch_stats"]})
         state.optimizer.load_state_dict(payload["opt_state"])
@@ -80,8 +83,7 @@ class CheckpointManager:
     def restore_weights(self, state: TrainState, name="best") -> TrainState:
         """Weights-only initialisation (the reference's ``initial_model``):
         parameters and BatchNorm statistics."""
-        payload = self.restore(name, state.model.encoder.backbone.conv0
-                               .weight.device)
+        payload = self.restore(name, _device(state.model))
         state.model.load_state_dict({**payload["params"],
                                      **payload["batch_stats"]})
         return state

@@ -9,11 +9,21 @@ update ``k`` (0-based) uses ``lr(k)``. ``torch.optim.AdamW`` with the
 config's betas and eps 1e-8 computes optax's ``adamw`` update: ``p -= lr *
 (m_hat / (sqrt(v_hat) + eps) + wd * p)``, the JAX package's fused AdamW
 with the same decay mask.
+
+``lr_scales`` gives each parameter a fixed multiple of the schedule's rate
+(the JAX package's ``build_optimizer(..., lr_scales=)``): the parameters
+are grouped by (decay, scale) and each group steps at the rate times its
+scale, which scales the whole update, weight decay included, as the JAX
+package's scaled update does. :func:`revcol_layer_scales` gives RevCol's
+layer-wise decay. The trainer passes none, as the JAX trainer passes
+none.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional
+from typing import Iterable, List, Optional, Sequence
+
+import re
 
 import numpy as np
 import torch
@@ -40,6 +50,50 @@ def cosine_schedule(lr: float, total_steps: int):
     return schedule
 
 
+def revcol_layer_scales(names: Iterable[str],
+                        layers: Sequence[int] = (2, 2, 4, 2),
+                        num_subnet: int = 4,
+                        layer_decay: float = 0.9) -> List[float]:
+    """The learning-rate scale of each parameter named in ``names`` (the
+    port's ``named_parameters()`` names), in their order: the JAX
+    package's ``revcol_layer_scales`` (reference ``param_groups_lrd``,
+    ``libs/utils/optimizer.py:77-143``). A dynamic-programming table of
+    depth over (block, column) gives each column / level / block a layer
+    id; the scale is ``layer_decay ** (num_layers - id)``; the stem has id
+    0, and whatever is not in a column of the backbone (the neck, the
+    head) ``num_layers``, scale 1."""
+    depth = sum(layers)
+    dp = np.zeros((depth, num_subnet), dtype=int)
+    dp[:, 0] = np.arange(depth)
+    dp[0, :] = np.arange(num_subnet)
+    for i in range(1, depth):
+        for j in range(1, num_subnet):
+            dp[i][j] = min(dp[i][j - 1], dp[i - 1][j]) + 1
+    dp = dp + 1
+    num_layers = dp[-1][-1] + 1  # numpy's integer: numpy's power, as JAX's
+    scales = [float(layer_decay ** (num_layers - i))
+              for i in range(num_layers + 1)]
+
+    def layer_id(name: str) -> int:
+        if "backbone" not in name:
+            return num_layers
+        if "stem" in name:
+            return 0
+        m = re.search(r"subnet(\d+)", name)
+        if not m:
+            return num_layers
+        col = int(m.group(1))
+        lm = re.search(r"level(\d+)", name)
+        if "alpha" in name or lm is None:
+            return int(dp[0][col])
+        lvl = int(lm.group(1))
+        bm = re.search(r"block(\d+)", name)
+        sub = min(int(bm.group(1)), layers[lvl] - 1) if bm else 0
+        return int(dp[sum(layers[:lvl]) + sub][col])
+
+    return [scales[min(layer_id(n), num_layers)] for n in names]
+
+
 def global_norm(tensors: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
     """The L2 norm over every entry of ``tensors`` (None skipped), one
     scalar on their device."""
@@ -49,17 +103,34 @@ def global_norm(tensors: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
 
 class Optimizer:
     """The training update: optional clip by global norm, then AdamW or
-    Nesterov SGD at the schedule's rate for the update's index. Holds the
-    torch optimizer (its ``state_dict`` goes into checkpoints) and the
-    count of updates made."""
+    Nesterov SGD at the schedule's rate for the update's index, times each
+    parameter's ``lr_scales`` entry (one a parameter of ``params``, in its
+    order; 1 without). Holds the torch optimizer (its ``state_dict`` goes
+    into checkpoints) and the count of updates made."""
 
     def __init__(self, tcfg: TrainConfig, total_steps: int,
-                 params: Iterable[torch.nn.Parameter]):
+                 params: Iterable[torch.nn.Parameter],
+                 lr_scales: Optional[Sequence[float]] = None):
+        params = list(params)
+        scales = [1.0] * len(params) if lr_scales is None else list(
+            lr_scales)
+        if len(scales) != len(params):
+            raise ValueError(f"{len(scales)} lr_scales for {len(params)} "
+                             f"parameters")
+        scales = [s for p, s in zip(params, scales) if p.requires_grad]
         params = [p for p in params if p.requires_grad]
-        decay = decay_mask(params)
-        groups = [{"params": [p for p, d in zip(params, decay) if d]},
-                  {"params": [p for p, d in zip(params, decay) if not d],
-                   "weight_decay": 0.0}]
+        # (decays, scale) -> parameters, decaying ones first; the two groups
+        # at scale 1 always, so that an unscaled optimizer's state has the
+        # same two groups whatever the parameters
+        by_key = {(True, 1.0): [], (False, 1.0): []}
+        for p, key in zip(params, zip(decay_mask(params), scales)):
+            by_key.setdefault(key, []).append(p)
+        by_key = dict(sorted(by_key.items(), key=lambda kv: not kv[0][0]))
+        groups = [dict(params=ps, **({} if decays else {"weight_decay": 0.0}))
+                  for (decays, _), ps in by_key.items()]
+        # each torch group's multiple of the schedule's rate, kept here and
+        # not in the groups: a checkpoint's optimizer state is torch's own
+        self.lr_scales = [scale for _, scale in by_key]
         self.params = params
         self.clip = tcfg.grad_clip_norm
         self.schedule = cosine_schedule(tcfg.learning_rate,
@@ -96,8 +167,8 @@ class Optimizer:
             torch._foreach_mul_([g for g in grads if g is not None], scale)
             norm = norm * scale
         lr = self.lr()
-        for group in self.opt.param_groups:
-            group["lr"] = lr
+        for group, scale in zip(self.opt.param_groups, self.lr_scales):
+            group["lr"] = lr * scale
         self.opt.step()
         self.count += 1
         return norm
@@ -114,5 +185,7 @@ class Optimizer:
 
 
 def build_optimizer(tcfg: TrainConfig, total_steps: int,
-                    params: Iterable[torch.nn.Parameter]) -> Optimizer:
-    return Optimizer(tcfg, total_steps, params)
+                    params: Iterable[torch.nn.Parameter],
+                    lr_scales: Optional[Sequence[float]] = None
+                    ) -> Optimizer:
+    return Optimizer(tcfg, total_steps, params, lr_scales)

@@ -78,10 +78,20 @@ def _backbone(src: _Source, prefix: str, target: Mapping
               ) -> Dict[str, np.ndarray]:
     """torchvision ResNet names -> ``<prefix>conv0 / bn0 / blocks.i``, the
     blocks numbered in order over ``layer1 .. layer4`` of the target's
-    depth (its block count: 8 for ResNet-18, 16 for ResNet-34)."""
+    depth (its block count: 8 for ResNet-18, 16 for ResNet-34). A
+    Bottleneck or RevCol target raises ValueError: the JAX package's
+    importer reads BasicBlocks only."""
+    if prefix + "conv0.weight" not in target:
+        raise ValueError("the target's backbone is no ResNet (RevCol?): "
+                         "the importer reads BasicBlock ResNets only")
+    if _indices(target, "^" + re.escape(prefix) + r"blocks\.(\d+)\.conv3\."):
+        raise ValueError("the target's backbone is a Bottleneck ResNet: "
+                         "the importer reads BasicBlock ResNets (18, 34) "
+                         "only")
     n_blocks = len(_indices(target, "^" + re.escape(prefix)
                             + r"blocks\.(\d+)\."))
-    stages = {sum(v): v for v in STAGE_BLOCKS.values()}.get(n_blocks)
+    stages = {sum(v): v for d, v in STAGE_BLOCKS.items()
+              if d < 50}.get(n_blocks)
     if stages is None:
         raise ValueError(f"a backbone of {n_blocks} blocks is no ResNet-18 "
                          f"or -34")

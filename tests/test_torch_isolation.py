@@ -55,6 +55,7 @@ def test_port_sources_exist():
             "phnet_torch/train/cli.py", "phnet_torch/train/openlane.py",
             "phnet_torch/data/synthetic.py", "phnet_torch/data/loader.py",
             "tools/torch_train_profile.py", "phnet_torch/models/head_ms.py",
+            "phnet_torch/models/revcol.py",
             "phnet_torch/ops/sampler.py", "phnet_torch/models/head_v3.py",
             "tools/torch_serving_profile.py",
             "phnet_torch/data/vil100.py", "phnet_torch/data/openlane.py",

@@ -4,6 +4,7 @@ package's ``build_optimizer``, the decay mask, remat, gradient
 accumulation, checkpoints and resume, dropout, the synthetic labels, the
 trainer and the command line's errors."""
 
+import copy
 import dataclasses
 import os
 
@@ -24,7 +25,7 @@ from phnet_torch.models.transformer import dropout
 from phnet_torch.train import __main__ as cli
 from phnet_torch.train.checkpoint import CheckpointManager
 from phnet_torch.train.optimizer import (Optimizer, cosine_schedule,
-                                         decay_mask)
+                                         decay_mask, revcol_layer_scales)
 from phnet_torch.train.state import create_train_state
 from phnet_torch.train.step import make_train_step
 from phnet_torch.train.trainer import train
@@ -32,6 +33,8 @@ from phnet_tpu.geometry import encode_lane_label as jax_encode
 from phnet_tpu.train.optimizer import build_optimizer as jax_optimizer
 from phnet_tpu.train.optimizer import cosine_schedule as jax_cosine
 from phnet_tpu.train.optimizer import decay_mask as jax_decay_mask
+from phnet_tpu.train.optimizer import \
+    revcol_layer_scales as jax_revcol_layer_scales
 
 STEPS, TOTAL = 10, 12
 
@@ -51,33 +54,51 @@ def synthetic_batch(m, b=1, t=2, seed=0):
             torch.from_numpy(batch["labels"]))
 
 
-@pytest.mark.parametrize("solver", ["adamw", "sgd"])
-def test_optimizer_trajectory_matches_jax(solver):
+@pytest.mark.parametrize("solver,backbone", [
+    ("adamw", "resnet"), ("sgd", "resnet"), ("adamw", "revcol"),
+    ("sgd", "revcol")], ids=["adamw", "sgd", "adamw-revcol", "sgd-revcol"])
+def test_optimizer_trajectory_matches_jax(solver, backbone):
     """10 updates of the small model's parameters, the same seeded
     gradients on both sides (one leaf all zeros: decay alone moves it),
-    against ``build_optimizer`` (the fused AdamW, or Nesterov SGD).
-    Within 1e-6 plus 2e-6 relative: float32 updates of ~lr, a float32 ulp
-    or two of the larger parameters."""
+    against ``build_optimizer`` (the fused AdamW, or Nesterov SGD). With
+    the RevCol backbone (``torch_parity.BACKBONES``), each package's
+    ``revcol_layer_scales`` go in as ``lr_scales``: per-group rates
+    against the JAX package's scaled updates, momentum and moments
+    included. Within 1e-6 plus 2e-6 relative: float32 updates of ~lr, a
+    float32 ulp or two of the larger parameters."""
     tcfg = tcfgmod.TrainConfig(solver=solver)
     jtcfg = jcfgmod.TrainConfig(solver=solver)
-    variables = tp.init_variables(tp.jax_cfg(), seed=0)
-    model = tp.torch_model(tp.torch_cfg(), variables)
-    opt = Optimizer(tcfg, TOTAL, model.parameters())
+    if backbone == "revcol":
+        jc = tp.small_backbone_cfg(jcfgmod, "revcol")
+        tc = tp.small_backbone_cfg(tcfgmod, "revcol")
+    else:
+        jc, tc = tp.jax_cfg(), tp.torch_cfg()
+    variables = tp.init_variables(jc, seed=0)
+    model = tp.torch_model(tc, variables)
+    scales = jscales = None
+    if backbone == "revcol":
+        b = tc.backbone
+        names = [n for n, _ in model.named_parameters()]
+        scales = revcol_layer_scales(names, b.revcol_layers,
+                                     b.revcol_num_subnet)
+        jscales = jax_revcol_layer_scales(
+            variables["params"], b.revcol_layers, b.revcol_num_subnet)
+        assert min(scales) < 0.5 and max(scales) == 1.0
+    opt = Optimizer(tcfg, TOTAL, model.parameters(), scales)
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
-    tx = jax_optimizer(jtcfg, TOTAL)
+    tx = jax_optimizer(jtcfg, TOTAL, lr_scales=jscales)
     state = tx.init(params)
     rng = np.random.default_rng(3)
-    zero_leaf = "encoder.backbone.blocks.0.conv0.weight"
     for step in range(STEPS):
-        gtree = jax.tree_util.tree_map(
-            lambda p: rng.normal(size=p.shape).astype(np.float32), params)
+        leaves, tree = jax.tree_util.tree_flatten(jax.tree_util.tree_map(
+            lambda p: rng.normal(size=p.shape).astype(np.float32), params))
+        first = next(i for i, x in enumerate(leaves) if x.ndim > 1)
+        leaves[first] = np.zeros_like(leaves[first])
+        gtree = jax.tree_util.tree_unflatten(tree, leaves)
         grads = convert({"params": gtree})
-        grads[zero_leaf].zero_()
         for name, p in model.named_parameters():
             p.grad = grads[name].clone()
         jgrads = jax.tree_util.tree_map(jnp.asarray, gtree)
-        node = jgrads["encoder"]["backbone"]["BasicBlock_0"]["Conv_0"]
-        node["kernel"] = jnp.zeros_like(node["kernel"])
         upd, state = tx.update(jgrads, state, params)
         params = jax.tree_util.tree_map(lambda a, u: a + u, params, upd)
         opt.step()
@@ -88,6 +109,50 @@ def test_optimizer_trajectory_matches_jax(solver):
                                        rtol=2e-6, atol=1e-6,
                                        err_msg=f"{solver} step {step} {name}")
     assert opt.count == STEPS
+
+
+def test_optimizer_state_without_scales_resumes():
+    """An optimizer state of the two-group layout that holds nothing of
+    the scales (written before they existed: the bare torch AdamW of that
+    layout, no clip) loads, and the resumed updates equal those of an
+    optimizer that ran throughout, scaled by 1 or not."""
+    tcfg = tcfgmod.TrainConfig(weight_decay=0.1, grad_clip_norm=0.0)
+    g = torch.Generator().manual_seed(0)
+    base = [torch.randn(4, 3, generator=g), torch.randn(3, generator=g)]
+    grads = [[torch.randn(p.shape, generator=g) for p in base]
+             for _ in range(3)]
+
+    def params():
+        return [torch.nn.Parameter(p.clone()) for p in base]
+
+    def step(opt, ps, gs):
+        for p, gr in zip(ps, gs):
+            p.grad = gr.clone()
+        opt.step()
+
+    old = params()  # the torch optimizer of the two-group layout, bare
+    torch_opt = torch.optim.AdamW(
+        [{"params": [old[0]]}, {"params": [old[1]], "weight_decay": 0.0}],
+        lr=tcfg.learning_rate, betas=tuple(tcfg.momentum), eps=1e-8,
+        weight_decay=tcfg.weight_decay)
+    for p, gr in zip(old, grads[0]):
+        p.grad = gr.clone()
+    torch_opt.step()
+    saved = {"count": 1, "torch": torch_opt.state_dict()}
+    assert all("lr_scale" not in grp for grp in saved["torch"][
+        "param_groups"])
+    ref = params()
+    ref_opt = Optimizer(tcfg, 10, ref)
+    for gs in grads:
+        step(ref_opt, ref, gs)
+    for scales in (None, [1.0, 1.0]):
+        ps = [torch.nn.Parameter(p.detach().clone()) for p in old]
+        opt = Optimizer(tcfg, 10, ps, scales)
+        opt.load_state_dict(copy.deepcopy(saved))  # as read from disk
+        for gs in grads[1:]:
+            step(opt, ps, gs)
+        for p, r in zip(ps, ref):
+            torch.testing.assert_close(p, r, rtol=0, atol=0)
 
 
 def test_cosine_schedule_matches_jax():

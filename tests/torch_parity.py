@@ -49,6 +49,31 @@ def small_model_cfg(cfgmod, window: int = 0):
     )
 
 
+# the other backbones at small widths (``BackboneConfig`` keywords): RevCol
+# of 3 columns, layers (1, 1, 2, 1); the Bottleneck ResNet-50 (stage
+# outputs 4x the widths); the GroupNorm ResNet-18 at widths wide enough
+# for groups of 2 and 3 channels (the stem's 64 too)
+BACKBONES = {
+    "revcol": (dict(kind="revcol", in_channels=(8, 16, 24, 32),
+                    revcol_layers=(1, 1, 2, 1), revcol_num_subnet=3,
+                    revcol_drop_path=0.0), (16, 24, 32)),
+    "r50": (dict(depth=50, in_channels=(8, 16, 24, 32)), (64, 96, 128)),
+    "gn": (dict(norm="group", in_channels=(32, 64, 96, 128)),
+           (64, 96, 128)),
+}
+
+
+def small_backbone_cfg(cfgmod, backbone: str, window: int = 0, **kw):
+    """The small VIL ModelConfig with the backbone ``backbone`` (a key of
+    :data:`BACKBONES`; ``kw`` overrides its ``BackboneConfig`` fields) and
+    its neck's input widths."""
+    fields, neck_in = BACKBONES[backbone]
+    cfg = small_model_cfg(cfgmod, window)
+    return dataclasses.replace(
+        cfg, backbone=cfgmod.BackboneConfig(**{**fields, **kw}),
+        neck=dataclasses.replace(cfg.neck, in_channels=neck_in))
+
+
 def jax_cfg(window: int = 0):
     return small_model_cfg(jcfg, window)
 
@@ -178,7 +203,10 @@ def init_variables(cfg, seed: int = 0, cls_std: float = 1.0,
     away from the confidence threshold and from each other; the other
     head outputs keep the JAX init's 1e-3 scale, but for a bias of
     ``lane_length`` on the valid-length output, so that kept lanes span
-    several rows and decode to points."""
+    several rows and decode to points. RevCol's layer scales ``gamma``
+    (1e-6 at init, which would hide any error in a block) are drawn from
+    N(0, 0.5) and its ``alpha`` (0.5 at init) from U(-1, 1), led by 0,
+    -5e-4 and 5e-4 (inside the clamp's 1e-3) in every leaf."""
     from phnet_tpu.geometry import build_prior_embeddings
 
     rng = np.random.default_rng(seed)
@@ -218,6 +246,11 @@ def init_variables(cfg, seed: int = 0, cls_std: float = 1.0,
             x = rng.uniform(0.0, 1.0, shape)
         elif name.endswith("['scale']"):
             x = 1.0 + normal(0.05)
+        elif name.endswith("['gamma']"):
+            x = normal(0.5)
+        elif "['alpha" in name:
+            x = rng.uniform(-1.0, 1.0, shape)
+            x[:3] = (0.0, -5e-4, 5e-4)
         else:  # biases
             x = normal(0.05)
         return np.asarray(x, dtype=np.float32)

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import pathlib
 import subprocess
@@ -65,16 +66,19 @@ ULP_SEEDS = (5, 6, 7)
 
 
 # the small configuration of each preset: "vil"; OpenLane-V's single head
-# "ol", multi-scale head "ms" and prior-propagation head "v3"
+# "ol", multi-scale head "ms" and prior-propagation head "v3"; VIL with
+# the other backbones, "revcol", "r50" and "gn" (``tp.BACKBONES``)
 SMALL = {"vil": tp.small_model_cfg, "ol": tp.small_ol_cfg,
-         "ms": tp.small_ms_cfg, "v3": tp.small_v3_cfg}
+         "ms": tp.small_ms_cfg, "v3": tp.small_v3_cfg,
+         **{name: functools.partial(tp.small_backbone_cfg, backbone=name)
+            for name in tp.BACKBONES}}
 
 
 def configs(preset: str, dtype: str = "float32", chain_f32: bool = False):
     """(JAX ModelConfig, port ModelConfig, JAX LossConfig, port
     LossConfig) of ``preset`` (a key of :data:`SMALL`) in ``dtype``."""
     j, t = SMALL[preset](jcfgmod), SMALL[preset](tcfgmod)
-    if preset == "vil":
+    if preset in ("vil",) + tuple(tp.BACKBONES):
         jl, tl = jcfgmod.LossConfig(), tcfgmod.LossConfig()
     else:
         jl = jcfgmod.openlane_config().train.loss
@@ -102,14 +106,33 @@ def clip_labels(rng, spec, img_w: int, max_lanes: int = 4) -> np.ndarray:
     return lab
 
 
+# the scale of the BatchNorm that ends each residual branch of the
+# Bottleneck ResNet-50 ("r50"), as a factor of the draw's ~1: the small
+# zero-gamma practice of ResNet-50 training. With scales near 1, 16 blocks
+# of train-mode BatchNorm amplify float32 rounding ~1.3x a block (both
+# packages, at any frame size or batch: their float32 gradients land a
+# median 1.3e-2 of a leaf's largest entry from the float64 step), and no
+# float32 bound of a leaf could be sharp.
+R50_BRANCH_SCALE = 0.1
+
+
 def problem(preset: str, tc, seed: int = 0):
-    """(numpy variables, frames, labels) from ``seed``."""
+    """(numpy variables, frames, labels) from ``seed``; for "r50" the
+    residual branches' last BatchNorm scales times
+    :data:`R50_BRANCH_SCALE`."""
     jc = SMALL[preset](jcfgmod)
     rng = np.random.default_rng(seed)
     frames = rng.normal(size=(B, T, tc.img_h, tc.img_w, 3)).astype(
         np.float32)
     labels = clip_labels(rng, tc.lane, tc.img_w)
-    return tp.init_variables(jc, seed=seed), frames, labels
+    variables = tp.init_variables(jc, seed=seed)
+    if preset == "r50":
+        for name, block in variables["params"]["encoder"][
+                "backbone"].items():
+            if name.startswith("Bottleneck_"):
+                norm = block["Norm_2"]["BatchNorm_0"]
+                norm["scale"] = norm["scale"] * R50_BRANCH_SCALE
+    return variables, frames, labels
 
 
 def jax_step(jc, jloss, variables, labels, dtype=np.float32):
@@ -134,7 +157,8 @@ def jax_step(jc, jloss, variables, labels, dtype=np.float32):
 
     def run(frames):
         (loss, (outs, mem, updates)), grads = step(
-            v["params"], v["batch_stats"], jnp.asarray(frames, dtype),
+            v["params"], v.get("batch_stats", {}), jnp.asarray(frames,
+                                                               dtype),
             jnp.asarray(labels, dtype))
         return dict(
             loss=float(loss), outs=outs, mem=mem,
@@ -145,7 +169,8 @@ def jax_step(jc, jloss, variables, labels, dtype=np.float32):
             ).items()},
             batch_stats={k: x.numpy() for k, x in convert(
                 {"batch_stats": jax.tree_util.tree_map(
-                    np.asarray, updates["batch_stats"])}).items()})
+                    np.asarray, dict(updates).get("batch_stats", {}))}
+            ).items()})
 
     return run
 
