@@ -186,7 +186,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     under the card-only profiler);
 40. RevCol's column checkpoint: float32 gradients with and without it
     under one drop-path seed within 1e-4 of each leaf's largest entry,
-    another seed moving most leaves.
+    another seed moving most leaves;
+41. data-parallel training at world size 1 on NCCL: the VIL command
+    line's ``main`` with ``--coordinator`` (full width, float32, B = 1,
+    4-frame clips, 2 steps and a resume) bit-equal to the same run
+    without the distributed flags, K2 24 times a step;
+42. the server's streams split over a mesh naming the card twice (two
+    replicas of 2 streams): keep sets equal to the one-replica server's,
+    kept rows and memory within 1e-3, K1 once and K2 three times a
+    replica a tick.
+
+The card machine has one card: more than one rank is held on the CPU
+only (``tests/test_torch_dist_train.py``).
 
 Phase 18 also holds K2's bf16 mode at one stream (G = 1, the plan of a
 B = 1 training step).
@@ -201,7 +212,9 @@ in a bf16 training step; each kernel's
 launches and times on the OpenLane-V paths under ``openlane_*`` keys, K1's
 at the prior-propagation head's 244 rows under ``propagate_rows_*``, K1's
 and K2's launches on the other backbones' paths under ``revcol_*``,
-``resnet50_*`` and ``groupnorm_*``; K2's
+``resnet50_*`` and ``groupnorm_*``, K2's in phase 41's NCCL steps
+under ``distributed_training_launches``, K1's and K2's in phase 42's
+split server under ``mesh_serving_launches``; K2's
 bf16 mode and K3 at bf16 x as entries of their own); the last line is
 ``{"ok": true, "device": {...}}``.
 Without a card, or without the package beside it, the script exits
@@ -2190,9 +2203,9 @@ def phase_eval_pipeline(torch, card, state_dict, clips):
     Both emissions scored with the Python and native CULane metrics at IoU
     0.5 and the temporal metric: equal where every file is byte-equal (else
     per frame on the byte-equal files); the ground truth against itself F1
-    = 1 in both metrics. The ground truth is in the model's frame and the
-    lines in the image's, so those scores are near 0 whatever the weights;
-    the card's lines scored against the CPU's (one frame) must match lanes
+    = 1 in both metrics. The ground truth and the lines are both in the
+    image's frame (the weights are random, so the scores are low); the
+    card's lines scored against the CPU's (one frame) must match lanes
     (TP > 0) with equal counts in both metrics. Prints the path's frames
     a second (decode + model + emit) beside the pipeline's model-only
     rate."""
@@ -2293,10 +2306,9 @@ def phase_eval_pipeline(torch, card, state_dict, clips):
         if gt_native["F1"] != 1.0 or gt_python["F1"] != 1.0:
             raise AssertionError(f"[eval pipeline] GT against itself: "
                                  f"native {gt_native}, python {gt_python}")
-        # the card's lines scored against the CPU's, both in the image's
-        # frame (the ground truth above is in the model's: a fault of both
-        # packages), so that the metrics match lanes: TP > 0, and the
-        # Python and native counts equal
+        # the card's lines scored against the CPU's (random weights score
+        # low against the ground truth), so that the metrics match lanes:
+        # TP > 0, and the Python and native counts equal
         cross = [(os.path.join(d("card"), f), os.path.join(d("cpu"), f))
                  for f in files]
         cross_native = evaluate_pairs(cross, 1280, 720)
@@ -2825,6 +2837,239 @@ def phase_revcol_checkpoint(torch, card, frames_per_clip=2, seeds=(5, 6)):
           f"[{card}]")
 
 
+@contextlib.contextmanager
+def deterministic(torch):
+    """PyTorch's deterministic implementations (``warn_only``: an op that
+    has none warns and runs its own) and cuDNN's deterministic
+    algorithms, the caller's settings given back after. Yields the list
+    of the warnings' distinct texts."""
+    import warnings
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    seen = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield seen
+        for w in caught:
+            text = str(w.message).splitlines()[0][:160]
+            if "deterministic" in text and text not in seen:
+                seen.append(text)
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            prev[2:]
+
+
+def checkpoint_payloads(torch, workdir):
+    """Every checkpoint file of ``workdir``: {file: payload} on the CPU."""
+    return {f: torch.load(os.path.join(workdir, f), map_location="cpu",
+                          weights_only=True)
+            for f in sorted(os.listdir(workdir)) if f.endswith(".pt")}
+
+
+def same_bits(torch, a, b) -> bool:
+    """Nested payloads (dicts, lists, tensors, numbers) equal bit for
+    bit."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_bits(torch, a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same_bits(torch, x, y) for x, y in zip(a, b)))
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype
+                and a.shape == b.shape
+                and torch.equal(a.reshape(-1).view(torch.uint8),
+                                b.reshape(-1).view(torch.uint8)))
+    return a == b
+
+
+def phase_distributed_training(torch, card, frames_per_clip=4):
+    """Phase 41: data-parallel training on the card at world size 1, on
+    NCCL. ``python -m phnet_torch.train``'s ``main`` in this process, the
+    VIL-100 preset at full width in float32 (``--fp32``) with decoder
+    dropout 0.1 and a checkpoint every epoch, B = 1, one synthetic video
+    of ``frames_per_clip`` frames: an epoch (one step), then resumed for
+    a second; once without the distributed flags and once with
+    ``--coordinator 127.0.0.1:<free port> --num-processes 1 --process-id
+    0`` (``initialize`` on NCCL; the step all-reduces its gradients and
+    metrics, rank 0 writes the checkpoints behind a barrier). Both under
+    deterministic algorithms (an op without one is printed). The gate: the
+    epoch losses, the final parameters and every checkpoint file's payload
+    bit-equal between the two runs, and K2 launched 3 times a frame,
+    again in the remat recompute, every step of the distributed run.
+    Prints the step wall p50 of each run and K2's launches a step."""
+    import io
+    import re
+
+    from phnet_torch.ops import router_chain as trc
+    from phnet_torch.train import __main__ as cli
+    from phnet_torch.train.cli import free_port
+
+    cfg = train_config(0.1, epoch_per_test=1)
+    base = ["--synthetic", "--fp32", "--frames", str(frames_per_clip),
+            "--synthetic-videos", "1", "--batch", "1"]
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # rank 0 alone
+    t0 = time.perf_counter()
+    runs = {}
+    for tag in ("one process", "nccl"):
+        with tempfile.TemporaryDirectory() as work:
+            trc.router_chain.launches = trc.router_chain.launches_bf16 = 0
+            out = io.StringIO()
+            with deterministic(torch) as notes, \
+                    contextlib.redirect_stdout(out):
+                losses = []
+                for epochs, resume in ((1, []), (2, ["--resume"])):
+                    group = [] if tag == "one process" else [
+                        "--coordinator", f"127.0.0.1:{free_port()}",
+                        "--num-processes", "1", "--process-id", "0"]
+                    losses += cli.main(base + ["--epochs", str(epochs),
+                                               "--workdir", work]
+                                       + resume + group, cfg=cfg)
+            walls = [float(x) for x in re.findall(r"wall p50 ([\d.]+) s",
+                                                  out.getvalue())]
+            runs[tag] = dict(losses=losses, files=checkpoint_payloads(
+                torch, work), k2=(trc.router_chain.launches,
+                                  trc.router_chain.launches_bf16),
+                notes=notes, walls=walls)
+    a, b = runs["one process"], runs["nccl"]
+    steps = 2
+    per_step = 2 * chain_per_frame(cfg) * frames_per_clip
+    if sorted(b["files"]) != ["best.pt", "epoch_1.pt", "epoch_2.pt"]:
+        raise AssertionError(f"[distributed training] files "
+                             f"{sorted(b['files'])}")
+    if b["k2"] != (per_step * steps, 0) or a["k2"] != b["k2"]:
+        raise AssertionError(f"[distributed training] K2 launches "
+                             f"(float32, bf16) {b['k2']} with NCCL, "
+                             f"{a['k2']} without, want {per_step} a step "
+                             f"over {steps} steps")
+    if not (a["losses"] == b["losses"] and np.isfinite(a["losses"]).all()
+            and same_bits(torch, a["files"], b["files"])):
+        diff = [f for f in a["files"] if not same_bits(
+            torch, a["files"][f], b["files"].get(f))]
+        raise AssertionError(f"[distributed training] NCCL at world size 1 "
+                             f"is not bit-equal to the one-process run: "
+                             f"losses {a['losses']} / {b['losses']}, files "
+                             f"differing {diff}; ops without a "
+                             f"deterministic implementation: "
+                             f"{a['notes'] + b['notes']}")
+    print(f"[distributed training] VIL f32 full width, B=1, "
+          f"{frames_per_clip}-frame clips, dropout 0.1: an epoch then a "
+          f"resumed second ({steps} steps), NCCL at world size 1 against one "
+          f"process: epoch losses {[round(x, 6) for x in b['losses']]} "
+          f"bit-equal, checkpoints {sorted(b['files'])} bit-equal "
+          f"(parameters, BatchNorm statistics, optimizer state); K2 "
+          f"{b['k2'][0] // steps} launches a step; step wall p50 by "
+          f"command (one process) {a['walls']} s, (NCCL) {b['walls']} s; "
+          f"ops without a deterministic implementation: "
+          f"{sorted(set(a['notes'] + b['notes'])) or 'none'}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return {"router_chain": b["k2"][0], "k2_per_step": b["k2"][0] // steps,
+            "step_wall_s": b["walls"], "one_process_step_wall_s": a["walls"]}
+
+
+def phase_mesh_serving(torch, card, state_dict, ticks=8, streams=4):
+    """Phase 42: the server's streams split over a mesh that names the card
+    twice (``make_mesh(devices=["cuda:0", "cuda:0"])``: two replicas of
+    ``streams / 2`` streams) against the one-replica server, the VIL-100
+    preset at full width in float32 with the same weights, over ``ticks``
+    ticks: stream 3 (the second replica) skipping ticks 2 and 5, stream 0
+    (the first) tick 3, stream 2 detached and re-attached before tick 4,
+    new weights (``update_variables``) before tick 6. Per tick the valid
+    slots (the keep sets) equal, the kept rows within 1e-3, the memory
+    mask equal and its values within 1e-3 (phase 6's card-against-CPU
+    bound: the replicas' GEMMs have another M, so bits may differ). The
+    split server's counters, zeroed just before its ticks and read just
+    after, must show K1 once and K2 three times a replica a tick. Prints
+    both servers' tick wall p50 (dispatch and decode)."""
+    from phnet_torch.config import vil100_config
+    from phnet_torch.ops import nms as tnms
+    from phnet_torch.ops import router_chain as trc
+    from phnet_torch.parallel import make_mesh
+    from phnet_torch.serving import StreamingServer
+
+    cfg = vil100_config()
+    m = cfg.model
+    swap = seeded_state_dict(torch, cfg, seed=1)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    frames = [rng.normal(size=(streams, m.img_h, m.img_w, 3)).astype(
+        np.float32) for _ in range(ticks)]
+    skips = {2: {3}, 3: {0}, 5: {3}}
+
+    def drive(server):
+        geometry = dict(ori_img_h=1080, cut_height=378)
+        sids = [server.attach(**geometry) for _ in range(streams)]
+        out, walls = [], []
+        for i in range(ticks):
+            if i == 4:
+                server.detach(2)
+                assert server.attach(**geometry) == 2
+            if i == 6:
+                server.update_variables(swap)
+            tick = {s: frames[i][s] for s in sids
+                    if s not in skips.get(i, ())}
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            kept, valid, got = server.step_async(tick)
+            lanes = server.decode(kept, valid, got)
+            walls.append(time.perf_counter() - w0)
+            mem = server.memory
+            out.append((server.gather(kept), server.gather(valid),
+                        mem.mask.cpu().numpy(), mem.values.cpu().numpy(),
+                        sum(len(v) for v in lanes.values())))
+        return out, walls
+
+    one, one_walls = drive(StreamingServer(cfg, state_dict,
+                                           max_streams=streams))
+    split = StreamingServer(cfg, state_dict, max_streams=streams,
+                            mesh=make_mesh(devices=["cuda:0", "cuda:0"]))
+    n = len(split.replicas)
+    tnms.lane_nms.launches = 0
+    trc.router_chain.launches = trc.router_chain.launches_bf16 = 0
+    got, walls = drive(split)
+    k1, k2, k2b = (tnms.lane_nms.launches, trc.router_chain.launches,
+                   trc.router_chain.launches_bf16)
+    worst_kept = worst_mem = 0.0
+    for i, ((ak, av, am, amv, _), (bk, bv, bm, bmv, _)) in enumerate(
+            zip(one, got)):
+        if not (np.array_equal(av, bv) and np.array_equal(am, bm)):
+            raise AssertionError(f"[mesh serving] tick {i}: keep sets or "
+                                 f"memory mask differ from one replica's")
+        worst_kept = max(worst_kept, float(np.abs(ak - bk).max()))
+        worst_mem = max(worst_mem, float(np.abs(amv - bmv).max()))
+    n_kept = sum(int(v.sum()) for _, v, _, _, _ in got)
+    if worst_kept > 1e-3 or worst_mem > 1e-3 or n_kept == 0:
+        raise AssertionError(f"[mesh serving] kept rows {worst_kept}, "
+                             f"memory {worst_mem} from one replica's "
+                             f"(bound 1e-3); {n_kept} kept")
+    if (k1, k2, k2b) != (n * ticks, 3 * n * ticks, 0):
+        raise AssertionError(f"[mesh serving] launches lane_nms {k1}, "
+                             f"router_chain {k2} (bf16 mode {k2b}) over "
+                             f"{ticks} ticks of {n} replicas: want 1 and 3 "
+                             f"a replica a tick")
+    p50, one_p50 = (float(np.median(np.array(w[1:]) * 1e3))
+                    for w in (walls, one_walls))
+    print(f"[mesh serving] VIL f32 full width, {streams} streams over "
+          f"{n} replicas on one card, {ticks} ticks (skips, a detach and "
+          f"attach, a weight swap): keep sets and memory masks equal to the "
+          f"one-replica server's, kept rows within {worst_kept:.3g}, memory "
+          f"within {worst_mem:.3g} (<= 1e-3); {n_kept} kept slots; "
+          f"launches a tick lane_nms {k1 // ticks} ({k1 // ticks // n} a "
+          f"replica), router_chain {k2 // ticks} ({k2 // ticks // n} a "
+          f"replica); tick wall p50 (dispatch and decode, ticks 1..) "
+          f"{p50:.2f} ms against one replica's {one_p50:.2f} ms; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return {"lane_nms": k1, "router_chain": k2, "tick_p50_ms": p50,
+            "one_replica_tick_p50_ms": one_p50}
+
+
 def lap(t0, tag):
     """Print the seconds since the script started, after ``tag``."""
     print(f"[time] {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2927,6 +3172,9 @@ def main() -> int:
     train_backbones = phase_train_backbones(torch, card)
     phase_revcol_checkpoint(torch, card)
     lap(t0, "phases 37-40")
+    distributed = phase_distributed_training(torch, card)
+    mesh_serving = phase_mesh_serving(torch, card, state_dict)
+    lap(t0, "phases 41-42")
 
     w8_ms_frame = stage_sum(w8_ms, 4, [name for name, _, _ in ms_products])
     single, multi = "openlane_config", "openlane_multiscale_config"
@@ -2996,6 +3244,11 @@ def main() -> int:
             for backbone, n in train_backbones.items():
                 kernels[-1][f"{backbone}_training_launches"] = \
                     n["k2_launches"]
+            # phase 41: the NCCL trainer's steps at world size 1
+            kernels[-1]["distributed_training_launches"] = \
+                distributed["router_chain"]
+        if name != "w8_matmul":  # phase 42: the split server's ticks
+            kernels[-1]["mesh_serving_launches"] = mesh_serving[name]
     for name, base, numbers, source, count in (  # the bf16 paths' entries
             ("router_chain_bf16", "router_chain",
              dict(chain_bf16[16], library_ms=None),

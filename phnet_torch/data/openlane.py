@@ -10,7 +10,10 @@ reference's schema (``libs/dataset/openlane/datasetOL.py:19-141``):
 Validation mode: a clip is a whole validation video: its frames with the
 top ``crop_size`` rows cut off, resized and normalized; its lanes moved up
 by the crop, those of fewer than three points dropped (the reference
-keeps ``len(lane) > 2``), scaled with the frames and numbered in order.
+keeps ``len(lane) > 2``), scaled with the frames and numbered in order
+(``points``, the model's frame); the same lanes in the frame the
+predictions are written in (``image_points``: half scale, the crop
+shifted back), the ground truth's.
 Frames are decoded, cropped, resized and normalized by ``native_loader``
 (libjpeg on the CPU, nvJPEG on the card).
 
@@ -99,7 +102,7 @@ class OpenLaneDataset(FrameSampling):
         pixels = augment is not None or flip
         frames_u8 = self.decode.u8(paths) if pixels else None
 
-        imgs, labels, points = [], [], []
+        imgs, labels, points, image_points = [], [], [], []
         for i, name in enumerate(frames):
             with open(os.path.join(label_dir, name + ".pickle"), "rb") as f:
                 anno = pickle.load(f)
@@ -114,6 +117,10 @@ class OpenLaneDataset(FrameSampling):
                     pts[:, 0] = (ori_w - 1) - pts[:, 0]
                 if len(pts) >= 3:  # reference filters len(lane) > 2
                     lanes.append(pts)
+            # the frame the predictions are written in: half scale, the
+            # crop shifted back
+            image_points.append([(p + np.array([0.0, crop], np.float32))
+                                 / 2 for p in lanes])
             if pixels:
                 img = frames_u8[i, crop:]
                 if flip:
@@ -137,7 +144,7 @@ class OpenLaneDataset(FrameSampling):
         else:
             out = self.decode(paths, crop, c.img_h, c.img_w)
         return {"name": vid, "frames": out, "labels": np.stack(labels),
-                "points": points,
+                "points": points, "image_points": image_points,
                 "size": (ori_h - crop, ori_w),  # the cropped frame
                 "ori_size": (ori_h, ori_w), "crop": crop,
                 "frame_names": frames}

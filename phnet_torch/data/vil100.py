@@ -11,8 +11,11 @@ reference's on-disk schema (``libs/dataset/dataV3.py:64-205``):
 Test mode: a clip is a whole test video: its frames cropped by the top
 ``cut_scale`` of the image, resized to the model's frame and normalized;
 its lanes (lanes of fewer than two points skipped, ``lane_id - 1`` the
-label row) moved up by the cut and scaled with the frames; the
-fixed-shape labels of the port's ``geometry.encode_lane_label``. Frames
+label row) moved up by the cut and scaled with the frames (``points``,
+the model's frame); the same lanes as the JSON gives them
+(``image_points``, the image's frame, before the cut: the frame the
+predictions are written in, and the ground truth's); the fixed-shape
+labels of the port's ``geometry.encode_lane_label``. Frames
 are decoded, cropped, resized and normalized by ``native_loader``
 (libjpeg on the CPU, bit-equal to the JAX package's native loader; nvJPEG
 on the card).
@@ -177,11 +180,12 @@ class VIL100Dataset(FrameSampling):
         return self.samples_per_video * len(self.videos)
 
     def _lanes(self, path: str, cut: int):
-        """A frame's lanes (x, y - cut) of two points or more, and their
-        label rows ``lane_id - 1``."""
+        """A frame's lanes (x, y - cut) of two points or more, their label
+        rows ``lane_id - 1``, and the same lanes' points as the JSON gives
+        them (the image's frame, before the cut)."""
         with open(path) as f:
             info = json.load(f)
-        lanes, ids = [], []
+        lanes, ids, image = [], [], []
         for lane in info["annotations"]["lane"]:
             pts = np.array([(p[0], p[1] - cut) for p in lane["points"]],
                            np.float32)
@@ -189,7 +193,9 @@ class VIL100Dataset(FrameSampling):
                 continue
             lanes.append(pts)
             ids.append(lane["lane_id"] - 1)
-        return lanes, ids
+            image.append(np.array([(p[0], p[1]) for p in lane["points"]],
+                                  np.float32))
+        return lanes, ids, image
 
     def _label(self, lanes, ids) -> np.ndarray:
         c = self.cfg
@@ -208,9 +214,9 @@ class VIL100Dataset(FrameSampling):
         c = self.cfg
         augment = self.augment if self.train else None
         frames_u8 = self.decode.u8(paths) if augment else None
-        imgs, labels, points = [], [], []
+        imgs, labels, points, image_points = [], [], [], []
         for i, name in enumerate(frames):
-            lanes0, ids0 = self._lanes(
+            lanes0, ids0, image = self._lanes(
                 os.path.join(jsonfolder, name + ".jpg.json"), cut)
             if augment is None:
                 lanes, ids = scale_lanes(lanes0, ori_h - cut, ori_w, c.img_h,
@@ -230,10 +236,11 @@ class VIL100Dataset(FrameSampling):
                             raise
                 imgs.append(normalize(img))
             points.append(lanes)
+            image_points.append(image)
         if augment is None:
             out = self.decode(paths, cut, c.img_h, c.img_w)
         else:
             out = torch.stack(imgs)
         return {"name": vid, "frames": out, "labels": np.stack(labels),
-                "points": points, "size": (ori_h, ori_w), "cut": cut,
-                "frame_names": frames}
+                "points": points, "image_points": image_points,
+                "size": (ori_h, ori_w), "cut": cut, "frame_names": frames}

@@ -24,7 +24,9 @@ What decides parity with the JAX package:
   masks from a generator seeded with :func:`column_seed`, so that the
   recompute of a checkpointed column draws the same masks without
   touching any live generator. The masks come from PyTorch's generators,
-  not JAX's, so they match the JAX package's in distribution only.
+  not JAX's, so they match the JAX package's in distribution only; under
+  data-parallel training each rank's masks are its images' rows of the
+  global batch's (``parallel.multihost.batch_rand``).
 
 ``save_memory`` recomputes every column but the first in the backward
 (``torch.utils.checkpoint``), the port of ``nn.remat(SubNet)`` and of
@@ -46,6 +48,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.multihost import batch_rand
 from .resnet import lecun_normal_
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -89,8 +92,8 @@ def drop_path(y: torch.Tensor, rate: float,
     if gen is None or rate <= 0.0:
         return y
     keep = 1.0 - rate
-    mask = torch.rand((y.shape[0],) + (1,) * (y.ndim - 1), generator=gen,
-                      device=y.device) < keep
+    mask = batch_rand((y.shape[0],) + (1,) * (y.ndim - 1), gen,
+                      y.device) < keep
     return y * mask / keep
 
 

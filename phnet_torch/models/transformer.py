@@ -17,6 +17,8 @@ it: on the attention weights, on each attention's residual branch, after
 the FFN's GELU and on its output. Its masks come from the
 ``torch.Generator`` the caller passes, so that a recompute seeded alike
 draws the same masks; with no generator, or in eval mode, there is none.
+Under data-parallel training each rank's masks are its rows of the masks
+of the global batch (``parallel.multihost.batch_rand``).
 
 In bfloat16 (``dtype``, the JAX package's ``compute_dtype="bfloat16"``)
 the decoder's residual stream and memory are cast to bf16 and
@@ -36,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.multihost import batch_rand
 from .mixed import cast, dense, layer_norm, widen
 
 NEG_INF = -1e9
@@ -51,7 +54,7 @@ def dropout(x: torch.Tensor, rate: float,
     0."""
     if gen is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    keep = batch_rand(x.shape, gen, x.device) >= rate
     keep_rate = float(torch.tensor(1.0 - rate, dtype=x.dtype))
     return torch.where(keep, x / keep_rate, 0.0)
 

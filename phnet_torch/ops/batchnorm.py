@@ -12,6 +12,15 @@ form ``dx = r * s * (g - mean(g) - x_hat * mean(g * x_hat))`` with
 float32 sums (a float64 model computes all of it in float64). Autograd of
 the formula would round bf16 cotangents elsewhere and sum in other
 orders. Channels are axis 1 (NCHW).
+
+Under a process group of more than one rank (data-parallel training,
+:mod:`phnet_torch.parallel.multihost`) the statistics are those of the
+global batch, as ``SyncBatchNorm``'s: the forward all-reduces the
+per-channel sums of x and x^2 and the count, the backward the sums of g
+and g * x_hat before it forms ``dx``; the parameters' gradients stay the
+rank's own sums (the step's gradient mean makes them the global ones).
+The all-reduced sums are float64. With one rank nothing is all-reduced
+and the arithmetic is the one-process arithmetic above.
 """
 
 from __future__ import annotations
@@ -19,6 +28,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from ..parallel.multihost import all_reduce_sum, is_multihost
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -34,12 +45,28 @@ def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return v.reshape((1, -1) + (1,) * (x.ndim - 2))
 
 
+def _global_sums(*sums: torch.Tensor, count: int):
+    """The per-channel ``sums`` and the ``count`` summed over the ranks,
+    in float64: (the sums, the count)."""
+    buf = torch.cat([s.double() for s in sums] + [
+        sums[0].new_full((1,), count, dtype=torch.float64)])
+    all_reduce_sum(buf)
+    c = sums[0].shape[0]
+    return [buf[i * c:(i + 1) * c] for i in range(len(sums))], buf[-1]
+
+
 def bn_batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean, var) per channel of x [N, C, ...] in float32, fast variance."""
+    """(mean, var) per channel of x [N, C, ...] in float32, fast variance;
+    over the global batch under a process group of more than one rank."""
     x32 = _wide(x)
     n = x.numel() // x.shape[1]
-    mean = x32.sum(_axes(x)) / n
-    mean2 = (x32 * x32).sum(_axes(x)) / n
+    sum_x, sum_x2 = x32.sum(_axes(x)), (x32 * x32).sum(_axes(x))
+    if is_multihost():
+        (sum_x, sum_x2), count = _global_sums(sum_x, sum_x2, count=n)
+        mean = (sum_x / count).to(x32.dtype)
+        mean2 = (sum_x2 / count).to(x32.dtype)
+    else:
+        mean, mean2 = sum_x / n, sum_x2 / n
     return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
 
@@ -65,9 +92,15 @@ class BatchNormTrainFn(torch.autograd.Function):
         xhat = (_wide(x) - _per_channel(mean, x)) * _per_channel(r, x)
         sum_g = g32.sum(axes)
         sum_gx = (g32 * xhat).sum(axes)
+        if is_multihost():
+            (all_g, all_gx), count = _global_sums(sum_g, sum_gx, count=n)
+            mean_g = (all_g / count).to(g32.dtype)
+            mean_gx = (all_gx / count).to(g32.dtype)
+        else:
+            mean_g, mean_gx = sum_g / n, sum_gx / n
         dx = _per_channel(r * scale, x) * (
-            g32 - _per_channel(sum_g / n, x)
-            - xhat * _per_channel(sum_gx / n, x))
+            g32 - _per_channel(mean_g, x)
+            - xhat * _per_channel(mean_gx, x))
         return dx.to(x.dtype), sum_gx, sum_g, None
 
 

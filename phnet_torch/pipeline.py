@@ -117,7 +117,10 @@ class InferencePipeline:
         ``dataset``: indexable (or with ``get_clip``) clip dicts with
         ``frames``, ``name``, ``frame_names``, ``points``, ``size`` (which
         OL clips may leave to the config) and an optional ``cut``. OL
-        lines are shifted back by the config's ``crop_size`` rows. Returns ``{'fps', 'frames', 'videos'}`` like the
+        lines are shifted back by the config's ``crop_size`` rows. The
+        ground truth is written from ``image_points`` (the readers' lanes
+        in the frame of the predictions), or from ``points`` where a clip
+        has no such key. Returns ``{'fps', 'frames', 'videos'}`` like the
         reference's per-video fps printout (``testVIL.py:127-130``)."""
         indices = list(video_indices) if video_indices is not None else list(
             range(len(dataset)))
@@ -135,7 +138,12 @@ class InferencePipeline:
                 write_pred_txt(pred_dir, clip["name"], fname, lanes, size, fmt,
                                crop_offset=self.mcfg.crop_size)
             if anno_dir is not None:
-                for fname, pts in zip(clip["frame_names"], clip["points"]):
+                # the ground truth in the frame the predictions are written
+                # in, as the reference's generate_anno writes it; a clip
+                # without it (a synthetic one) has no other frame than the
+                # model's
+                gt = clip.get("image_points", clip["points"])
+                for fname, pts in zip(clip["frame_names"], gt):
                     write_gt_txt(anno_dir, clip["name"], fname, pts)
             if verbose:
                 print(f"{clip['name']}: {len(lanes_per_frame)} frames, "

@@ -3,12 +3,10 @@ the reference's ``testVIL.py``): whole test videos through the model with
 temporal memory, CULane ``.lines.txt`` emission, the frames a second;
 ``--evaluate`` scores the emission with the Python CULane metric after.
 
-On a dataset (not ``--synthetic``) the ground truth that the pipeline
-writes to ``--anno-dir`` is in the model's frame (cropped by the cut and
-resized) and the predictions are in the image's frame, as the JAX
-package writes them; ``--evaluate`` then scores a perfect model near F1
-0, so its F1 is no accuracy, and it says so on stderr. Score the
-predictions against ground truth in the image's frame instead.
+On a dataset (not ``--synthetic``) the pipeline writes the ground truth
+to ``--anno-dir`` in the image's frame, the predictions' (the JSON's
+points, before the cut), as the reference's ``generate_anno`` does, so
+``--evaluate`` scores the real F1.
 
     python -m phnet_torch.run.test_vil --data-root ./dataset \\
         --checkpoint models/VIL100/best [--evaluate] [--quantize w8]
@@ -81,12 +79,6 @@ def main(argv: Optional[Sequence[str]] = None, cfg=None) -> Dict:
                               fmt="vil", verbose=True)
     print(f"overall: {stats['frames']} frames at {stats['fps']:.1f} fps")
     out = {"stats": stats, "metric": None}
-    if args.evaluate and not args.synthetic:
-        print(f"warning: {args.anno_dir} holds the ground truth in the "
-              f"model's frame ({cfg.model.img_w}x{cfg.model.img_h}, after "
-              f"the cut) and {args.pred_dir} the predictions in the "
-              f"image's frame: the F1 below is not an accuracy",
-              file=sys.stderr)
     if args.evaluate:
         shape = ((cfg.model.img_h, cfg.model.img_w, 3) if args.synthetic
                  else None)

@@ -1,5 +1,4 @@
-"""Multi-stream online serving (port of ``phnet_tpu/serving.py``, one
-device, no mesh).
+"""Multi-stream online serving (port of ``phnet_tpu/serving.py``).
 
 Up to ``max_streams`` live videos share one batched frame step per tick;
 each stream has its own rows of the temporal memory ring, so attaching or
@@ -19,6 +18,17 @@ mode, as the JAX server's does (``router_chain_bf16=None`` resolves to
 ``max_streams > 8``; True or False in the config wins), in float32 compute
 as in bfloat16. The frames go up in float32 and the encoder casts them to
 the compute dtype.
+
+With a ``mesh`` (:func:`phnet_torch.parallel.make_mesh`) the streams are
+split over its ``data`` axis, as the JAX server shards them: each of its
+D devices holds a replica of the model, its collapsed DynamicConv
+weights, and the memory rows and frame buffer of ``max_streams / D``
+streams; slot s lives on device ``s // (max_streams / D)``. A tick
+uploads every device's frames, then dispatches every device's step
+before it waits on any; :meth:`StreamingServer.decode` gathers the kept
+rows on the host. The router chain's mode is resolved from the global
+``max_streams``. A mesh may name one device more than once (replicas
+sharing a card).
 """
 
 from __future__ import annotations
@@ -26,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,96 +63,52 @@ def resolve_chain_bf16(cfg: Config, max_streams: int) -> Config:
         cfg.model, head=head))
 
 
-class StreamingServer:
-    """Batched frame-synchronous server for up to ``max_streams`` videos.
+class _Replica:
+    """One device's share of the server: the model and its collapsed
+    DynamicConv weights, the memory rows and the frame buffer of
+    ``streams`` slots."""
 
-    ``state_dict``: the port's weights (for example
-    ``phnet_torch.convert.convert`` of a JAX checkpoint). ``device=None``
-    serves on the card. ``self.cfg`` is ``cfg`` with the router chain's
-    mode resolved (:func:`resolve_chain_bf16`)."""
+    def __init__(self, cfg: Config, state_dict, streams: int, window: int,
+                 device: torch.device):
+        m = cfg.model
+        self.device = device
+        self.window = window
+        self.model = PHNet(m, device=device)
+        self.load(state_dict)
+        self.memory = init_memory(m, streams, window, device)
+        self.frames = torch.zeros((streams, 1, m.img_h, m.img_w, 3),
+                                  device=device)
+        self.row_mask = torch.zeros(streams, dtype=torch.bool, device=device)
 
-    def __init__(self, cfg: Config, state_dict: Mapping[str, torch.Tensor],
-                 max_streams: int = 4, memory_window: int = None,
-                 device=None):
-        self.device = resolve_device(device)
-        self.cfg = cfg = resolve_chain_bf16(cfg, max_streams)
-        self.mcfg = mcfg = cfg.model
-        self.model = PHNet(mcfg, device=self.device)
-        self.max_streams = max_streams
-        self.update_variables(state_dict)
-        self.window = memory_window or (
-            mcfg.memory.window if mcfg.memory.window > 0 else DEFAULT_WINDOW)
-        self.memory = init_memory(mcfg, max_streams, self.window, self.device)
-        self._frames = torch.zeros(
-            (max_streams, 1, mcfg.img_h, mcfg.img_w, 3), device=self.device)
-        self.active = np.zeros(max_streams, bool)
-        # original-image decode geometry per stream
-        self.stream_geo: List[Tuple[int, int]] = [(0, 0)] * max_streams
-        self._tick_wall = deque(maxlen=512)
-        self._n_ticks = 0
-        self._n_frames = 0
-        self._frames_per_stream = np.zeros(max_streams, np.int64)
-
-    def update_variables(self, state_dict: Mapping[str, torch.Tensor]):
-        """Swap the served weights and rebuild the collapsed (with
-        ``quantize``, re-quantized) DynamicConv weights, so no tick serves
-        stale combines."""
+    def load(self, state_dict):
         self.model.load_state_dict(state_dict, strict=True)
-        self._dyn = self.model.head.combine_dynamic()
+        self.dyn = self.model.head.combine_dynamic()
 
-    # ------------------------------------------------------------------
-    def attach(self, ori_img_h: int = 0, cut_height: int = 0) -> int:
-        """Register a new stream; returns its slot id (memory cleared)."""
-        free = np.nonzero(~self.active)[0]
-        if len(free) == 0:
-            raise RuntimeError("no free stream slots")
-        sid = int(free[0])
-        self.active[sid] = True
-        self.stream_geo[sid] = (ori_img_h, cut_height)
-        self._frames_per_stream[sid] = 0
-        self._clear_slot(sid)
-        return sid
-
-    def detach(self, sid: int):
-        self.active[sid] = False
-        self._clear_slot(sid)
-
-    def _clear_slot(self, sid: int):
+    def clear(self, slot: int):
         mask = self.memory.mask.clone()
-        mask[sid] = False
+        mask[slot] = False
         self.memory = self.memory._replace(mask=mask)
 
-    # ------------------------------------------------------------------
-    @torch.no_grad()
-    def step_async(self, frames: Dict[int, np.ndarray]):
-        """Dispatch one batched tick without waiting for the device.
-        Returns (kept [S, K, dim], valid [S, K], sids); pass them to
-        :meth:`decode`."""
-        mcfg = self.mcfg
-        t0 = time.perf_counter()
-        for sid in frames:
-            assert self.active[sid], f"stream {sid} not attached"
-        sids = list(frames.keys())
-        if sids:
-            rows = np.stack([np.asarray(frames[s], np.float32).reshape(
-                mcfg.img_h, mcfg.img_w, 3) for s in sids])
-            idx = torch.tensor(sids, device=self.device)
-            self._frames[idx, 0] = torch.from_numpy(rows).to(self.device)
-        row_mask = torch.zeros(self.max_streams, dtype=torch.bool)
-        row_mask[sids] = True
-        row_mask = row_mask.to(self.device)
+    def stage(self, slots: Sequence[int], rows: Sequence[np.ndarray],
+              img_h: int, img_w: int):
+        """Upload this tick's frames into the slots that have one, and the
+        tick's row mask."""
+        mask = torch.zeros(self.row_mask.shape[0], dtype=torch.bool)
+        if slots:
+            batch = np.stack([np.asarray(r, np.float32).reshape(
+                img_h, img_w, 3) for r in rows])
+            idx = torch.tensor(list(slots), device=self.device)
+            self.frames[idx, 0] = torch.from_numpy(batch).to(self.device)
+            mask[list(slots)] = True
+        self.row_mask = mask.to(self.device)
 
+    def launch(self):
+        """Dispatch the tick's step; returns (kept, valid) on the device."""
         mem = self.memory
-        outs, new = self.model(self._frames, initial_memory=mem,
-                               dyn_combined=self._dyn)
-        self.memory = self._keep_skipped(mem, new, row_mask)
-
-        self._tick_wall.append(time.perf_counter() - t0)
-        self._n_ticks += 1
-        self._n_frames += len(sids)
-        for sid in sids:
-            self._frames_per_stream[sid] += 1
-        return outs.kept[0], outs.kept_valid[0], sids
+        outs, new = self.model(self.frames, initial_memory=mem,
+                               dyn_combined=self.dyn)
+        self.memory = self._keep_skipped(mem, new, self.row_mask)
+        return outs.kept[0], outs.kept_valid[0]
 
     def _keep_skipped(self, mem, new, row_mask):
         """The memory after a tick: streams with no new frame keep their
@@ -165,6 +131,156 @@ class StreamingServer:
         mask[:, pos] &= row_mask[:, None]
         return MemoryState(values=values, mask=mask, t=new.t)
 
+
+class StreamingServer:
+    """Batched frame-synchronous server for up to ``max_streams`` videos.
+
+    ``state_dict``: the port's weights (for example
+    ``phnet_torch.convert.convert`` of a JAX checkpoint). ``device=None``
+    serves on the card; ``mesh`` splits the streams over its ``data``
+    axis (``max_streams`` must be a multiple of its size) and takes the
+    place of ``device``. ``self.cfg`` is ``cfg`` with the router chain's
+    mode resolved (:func:`resolve_chain_bf16`) from ``max_streams``."""
+
+    def __init__(self, cfg: Config, state_dict: Mapping[str, torch.Tensor],
+                 max_streams: int = 4, memory_window: int = None,
+                 device=None, mesh=None):
+        if mesh is None:
+            devices = [resolve_device(device)]
+        else:
+            if device is not None:
+                raise ValueError("pass a device or a mesh, not both")
+            if "data" not in mesh.axis_names:
+                raise ValueError(f"mesh needs a 'data' axis to split streams "
+                                 f"over (got axes {mesh.axis_names})")
+            if mesh.shape.get("model", 1) != 1:
+                raise NotImplementedError(
+                    "a mesh with a model axis: shard_params is not ported "
+                    "yet (ROADMAP.md Queue 1 item 3.3)")
+            devices = [resolve_device(d) for d in mesh.data_devices()]
+            if max_streams % len(devices):
+                raise ValueError(
+                    f"max_streams={max_streams} must be divisible by the "
+                    f"mesh data axis ({len(devices)})")
+        self.mesh = mesh
+        self.cfg = cfg = resolve_chain_bf16(cfg, max_streams)
+        self.mcfg = mcfg = cfg.model
+        self.max_streams = max_streams
+        self.share = max_streams // len(devices)
+        self.window = memory_window or (
+            mcfg.memory.window if mcfg.memory.window > 0 else DEFAULT_WINDOW)
+        self.replicas = [_Replica(cfg, state_dict, self.share, self.window,
+                                  dev) for dev in devices]
+        self.active = np.zeros(max_streams, bool)
+        # original-image decode geometry per stream
+        self.stream_geo: List[Tuple[int, int]] = [(0, 0)] * max_streams
+        self._tick_wall = deque(maxlen=512)
+        self._n_ticks = 0
+        self._n_frames = 0
+        self._frames_per_stream = np.zeros(max_streams, np.int64)
+
+    # the first replica's, the only one without a mesh
+    @property
+    def device(self) -> torch.device:
+        return self.replicas[0].device
+
+    @property
+    def model(self) -> PHNet:
+        return self.replicas[0].model
+
+    @property
+    def _dyn(self):
+        return self.replicas[0].dyn
+
+    @property
+    def memory(self):
+        """The streams' memory: without a mesh the live state on the
+        device; with one, every replica's rows joined on the host (a
+        copy)."""
+        if len(self.replicas) == 1:
+            return self.replicas[0].memory
+        mems = [r.memory for r in self.replicas]
+
+        def join(name):
+            return torch.cat([getattr(m, name).cpu() for m in mems])
+
+        if isinstance(mems[0], V3MemoryState):
+            return V3MemoryState(feat=join("feat"), priors=join("priors"),
+                                 mask=join("mask"), t=mems[0].t)
+        return MemoryState(values=join("values"), mask=join("mask"),
+                           t=mems[0].t)
+
+    def _where(self, sid: int) -> Tuple[_Replica, int]:
+        """The replica holding slot ``sid`` and its slot there."""
+        return self.replicas[sid // self.share], sid % self.share
+
+    def update_variables(self, state_dict: Mapping[str, torch.Tensor]):
+        """Swap the served weights on every replica and rebuild the
+        collapsed (with ``quantize``, re-quantized) DynamicConv weights, so
+        no tick serves stale combines."""
+        for r in self.replicas:
+            r.load(state_dict)
+
+    # ------------------------------------------------------------------
+    def attach(self, ori_img_h: int = 0, cut_height: int = 0) -> int:
+        """Register a new stream; returns its slot id (memory cleared)."""
+        free = np.nonzero(~self.active)[0]
+        if len(free) == 0:
+            raise RuntimeError("no free stream slots")
+        sid = int(free[0])
+        self.active[sid] = True
+        self.stream_geo[sid] = (ori_img_h, cut_height)
+        self._frames_per_stream[sid] = 0
+        self._clear_slot(sid)
+        return sid
+
+    def detach(self, sid: int):
+        self.active[sid] = False
+        self._clear_slot(sid)
+
+    def _clear_slot(self, sid: int):
+        replica, slot = self._where(sid)
+        replica.clear(slot)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def step_async(self, frames: Dict[int, np.ndarray]):
+        """Dispatch one batched tick without waiting for the device.
+        Returns (kept [S, K, dim], valid [S, K], sids) (with a mesh, kept
+        and valid are lists of each replica's rows: :meth:`gather` joins
+        them); pass them to :meth:`decode`."""
+        mcfg = self.mcfg
+        t0 = time.perf_counter()
+        for sid in frames:
+            assert self.active[sid], f"stream {sid} not attached"
+        sids = list(frames.keys())
+        shares = [[] for _ in self.replicas]
+        for sid in sids:
+            shares[sid // self.share].append(sid)
+        # every replica's upload, then every replica's step: a replica's
+        # upload does not wait behind another's work
+        for replica, own in zip(self.replicas, shares):
+            replica.stage([s % self.share for s in own],
+                          [frames[s] for s in own], mcfg.img_h, mcfg.img_w)
+        outs = [replica.launch() for replica in self.replicas]
+
+        self._tick_wall.append(time.perf_counter() - t0)
+        self._n_ticks += 1
+        self._n_frames += len(sids)
+        for sid in sids:
+            self._frames_per_stream[sid] += 1
+        if len(outs) == 1:
+            return outs[0][0], outs[0][1], sids
+        return [k for k, _ in outs], [v for _, v in outs], sids
+
+    @staticmethod
+    def gather(rows) -> np.ndarray:
+        """A tick's kept rows or valid slots on the host: one tensor, or a
+        mesh's list of each replica's, joined in slot order."""
+        if isinstance(rows, (list, tuple)):
+            return np.concatenate([r.cpu().numpy() for r in rows])
+        return rows.cpu().numpy()
+
     def stats(self) -> Dict:
         """Lifetime tick/frame counters, per-stream frames, and
         dispatch-wall percentiles over the last <= 512 ticks (host
@@ -184,8 +300,7 @@ class StreamingServer:
     def decode(self, kept, valid, sids) -> Dict[int, List[Lane]]:
         """Fetch and decode a tick dispatched by :meth:`step_async`."""
         spec = self.mcfg.lane
-        kept = kept.cpu().numpy()
-        valid = valid.cpu().numpy()
+        kept, valid = self.gather(kept), self.gather(valid)
         results: Dict[int, List[Lane]] = {}
         for sid in sids:
             ori_h, cut = self.stream_geo[sid]

@@ -9,11 +9,17 @@ On the dataset, the train videos of ``<data-root>/VIL100`` through the
 train-mode reader (``TrainAugment`` on the card, the preset's
 ``samples_per_video``, ``max_skip`` and its curriculum) and the
 prefetching loader, as ``train_vil.py:89-118``; ``--synthetic`` trains on
-generated clips. bfloat16 compute on one card, as ``train_vil.py``
-trains; ``--fp32`` for float32, ``--device cpu`` for the CPU (the reader
-too). ``--assigner`` picks the training assigner (Hungarian, or the
-dynamic-k match). Runs over several devices are not ported yet and exit
-with a message saying so. :mod:`phnet_torch.train.openlane` is
+generated clips. bfloat16 compute, as ``train_vil.py`` trains;
+``--fp32`` for float32, ``--device cpu`` for the CPU (the reader too).
+``--assigner`` picks the training assigner (Hungarian, or the dynamic-k
+match). Over several devices, one rank a device:
+
+    python -m phnet_torch.train --synthetic --devices 4 --batch 4
+    python -m phnet_torch.train ... --coordinator host0:29500 \
+        --num-processes 2 --process-id 0      # on each host, its own id
+    torchrun --nproc-per-node 4 -m phnet_torch.train ...
+
+(see :mod:`phnet_torch.train.cli`). :mod:`phnet_torch.train.openlane` is
 OpenLane-V's command line.
 """
 
@@ -23,7 +29,7 @@ import dataclasses
 import sys
 from typing import Optional, Sequence
 
-from .cli import check_common, common_parser, run
+from .cli import check_common, common_parser, run, vil_dataset
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -35,28 +41,18 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     return ap.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None):
+def main(argv: Optional[Sequence[str]] = None, cfg=None):
+    """The command line on ``argv``; ``cfg`` in place of
+    ``vil100_config()`` where given (a smaller configuration)."""
     args = parse_args(argv)
-    check_common(args, "phnet_torch.train", "VIL-100", "VIL100")
     from ..config import vil100_config
 
-    cfg = vil100_config()
+    cfg = cfg or vil100_config()
+    check_common(args, "phnet_torch.train", "VIL-100", "VIL100",
+                 cfg.train.train_batch)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, train_assigner=args.assigner))
-
-    def dataset(cfg, frames):
-        from ..data.transforms import TrainAugment
-        from ..data.vil100 import VIL100Dataset
-
-        m, t = cfg.model, cfg.train
-        return VIL100Dataset(
-            args.data_root, m, train=True, device=args.device,
-            sampled_frames=frames, max_skip=t.max_skip,
-            skip_increment=t.skip_increment,
-            samples_per_video=t.samples_per_video,
-            augment=TrainAugment(m.img_h, m.img_w))
-
-    return run(cfg, args, dataset)
+    return run(cfg, args, vil_dataset)
 
 
 if __name__ == "__main__":

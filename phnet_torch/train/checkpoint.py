@@ -8,6 +8,10 @@ optimizer's state, the running minimum loss, the epoch to start from and
 the dataset curriculum's ``max_skip``. :meth:`restore_state` resumes all
 of it; :meth:`restore_weights` takes the weights only. Orbax checkpoints
 of the JAX package are not read.
+
+In a process group rank 0 alone writes, as the JAX package's
+``phnet_tpu/train/checkpoint.py:46``, and every rank waits at a barrier
+after the save; every rank reads the same files.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
+from ..parallel.multihost import barrier, rank
 from .state import TrainState
 
 
@@ -43,14 +48,16 @@ class CheckpointManager:
 
     def save(self, state: TrainState, epoch: int, max_skip: int,
              is_best: bool = False, periodic: bool = True):
-        payload = dict(_split(state.model), step=state.step,
-                       opt_state=state.optimizer.state_dict(),
-                       min_loss=float(state.min_loss), epoch=int(epoch),
-                       max_skip=int(max_skip))
-        if periodic:
-            torch.save(payload, self._path(epoch))
-        if is_best:
-            torch.save(payload, self._path("best"))
+        if rank() == 0:
+            payload = dict(_split(state.model), step=state.step,
+                           opt_state=state.optimizer.state_dict(),
+                           min_loss=float(state.min_loss), epoch=int(epoch),
+                           max_skip=int(max_skip))
+            if periodic:
+                torch.save(payload, self._path(epoch))
+            if is_best:
+                torch.save(payload, self._path("best"))
+        barrier()
 
     def latest_epoch(self) -> Optional[int]:
         epochs = [int(f[6:-3]) for f in os.listdir(self.dir)

@@ -9,13 +9,13 @@
 default, ``Router4OL``: :func:`~phnet_torch.config.openlane_config`),
 ``multiscale`` (``Router4OLV2``: ``openlane_multiscale_config``) or
 ``propagate`` (``Router4OLV3``: ``openlane_propagate_config``), each with
-``--n-offsets``, in bfloat16 unless ``--fp32``, on one card (``--device
+``--n-offsets``, in bfloat16 unless ``--fp32``, on the card (``--device
 cpu`` for the CPU, the reader too). On the dataset, the training videos
 of ``<data-root>/OpenLane`` through the train-mode reader (the clip flip
 and reversal, ``TrainAugment.ol_defaults`` on the card) and the
 prefetching loader, as ``train_ol.py:87-115``; ``--synthetic`` trains on
-generated clips. Runs over several devices are not ported yet and exit
-with a message saying so.
+generated clips. Over several devices (``--devices N``, the multi-host
+flags, ``torchrun``) as :mod:`phnet_torch.train.cli` sets out.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from __future__ import annotations
 import sys
 from typing import Optional, Sequence
 
-from .cli import check_common, common_parser, run
+from .cli import check_common, common_parser, openlane_dataset, run
 
 PROG = "phnet_torch.train.openlane"
 VARIANTS = {"single": "openlane_config",
@@ -42,25 +42,17 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     return ap.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None):
+def main(argv: Optional[Sequence[str]] = None, cfg=None):
+    """The command line on ``argv``; ``cfg`` in place of the variant's
+    preset where given (a smaller configuration)."""
     args = parse_args(argv)
-    check_common(args, PROG, "OpenLane-V", "OpenLane")
     from .. import config
 
-    def dataset(cfg, frames):
-        from ..data.openlane import OpenLaneDataset
-        from ..data.transforms import TrainAugment
-
-        m, t = cfg.model, cfg.train
-        return OpenLaneDataset(
-            args.data_root, m, train=True, device=args.device,
-            sampled_frames=frames, max_skip=t.max_skip,
-            skip_increment=t.skip_increment,
-            samples_per_video=t.samples_per_video,
-            augment=TrainAugment.ol_defaults(m.img_h, m.img_w))
-
-    make_cfg = getattr(config, VARIANTS[args.variant])
-    return run(make_cfg(n_offsets=args.n_offsets), args, dataset)
+    cfg = cfg or getattr(config, VARIANTS[args.variant])(
+        n_offsets=args.n_offsets)
+    check_common(args, PROG, "OpenLane-V", "OpenLane",
+                 cfg.train.train_batch)
+    return run(cfg, args, openlane_dataset)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,15 @@ tensors.
 accumulates their gradients and makes one update on their mean; BatchNorm's
 running statistics see each micro-batch in turn, as the JAX package's scan
 over micro-batches does.
+
+In a process group (data-parallel training,
+:mod:`phnet_torch.parallel.multihost`) ``frames`` and ``labels`` are the
+rank's shard of the global batch. After the backward the gradients are
+all-reduced to their mean in one flat buffer, before the clip and the
+update, so that every rank makes the global batch's update; the metrics
+are all-reduced to their mean too, so that every rank reports (and
+judges) the global loss. Micro-batch k is every rank's local micro-batch
+k together.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 
 from ..device import full_f32
 from ..losses.criterion import LaneCriterion
+from ..parallel.multihost import all_reduce_mean, in_group
 from .state import TrainState
 
 
@@ -64,11 +74,41 @@ def make_train_step(criterion: LaneCriterion,
             if accum_steps > 1:
                 torch._foreach_div_([p.grad for p in opt.params
                                      if p.grad is not None], accum_steps)
+            if in_group():
+                mean_gradients(opt.params)
             grad_norm = opt.step()
         metrics = {key: v / accum_steps for key, v in sums.items()}
         metrics["loss"] = total / accum_steps
+        if in_group():
+            metrics = mean_metrics(metrics)
         metrics["grad_norm"] = grad_norm
         state.step += 1
         return state, metrics
 
     return train_step
+
+
+@torch.no_grad()
+def mean_gradients(params):
+    """Every parameter's gradient replaced by its mean over the ranks,
+    through one flat buffer (a parameter the loss did not reach takes a
+    zero gradient first, as the update gives it)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    flat = all_reduce_mean(torch.cat([g.reshape(-1) for g in grads]))
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def mean_metrics(metrics: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """The step's metrics (device scalars) averaged over the ranks."""
+    keys = sorted(metrics)
+    dtype = metrics["loss"].dtype
+    flat = all_reduce_mean(torch.stack([metrics[k].reshape(()).to(dtype)
+                                        for k in keys]))
+    return {k: flat[i] for i, k in enumerate(keys)}

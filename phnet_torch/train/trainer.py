@@ -12,6 +12,15 @@ weights only. A text log (epoch, learning rate, loss) goes to
 model's compute dtype (float32, or the JAX trainers' bf16) is the
 configuration's. Batches hold numpy arrays (synthetic clips) or tensors
 (the readers' train mode, frames already on the reader's device).
+
+In a process group (:mod:`phnet_torch.parallel.multihost`) each rank
+trains on ``device`` from its shard of the batches (the caller's loader,
+``ClipLoader(num_shards=world, shard_index=rank)``), the parameters and
+buffers start from rank 0's, and the step all-reduces the gradients and
+the metrics. Rank 0 alone prints, writes the log and writes the
+checkpoints, as the JAX trainer does; a barrier follows each save, and
+every rank resumes from the same files. At each epoch's end the ranks
+check that they hold the same bits.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from ..config import Config
 from ..device import resolve_device
 from ..losses.criterion import LaneCriterion
 from ..models.phnet import check_trainable
+from ..parallel.multihost import broadcast_module, check_same_bits, rank
 from .checkpoint import CheckpointManager
 from .state import TrainState, create_train_state
 from .step import make_train_step, step_seed
@@ -100,9 +110,13 @@ def train(cfg: Config, dataset, loader, workdir: str,
         dataset.set_max_skip(max_skip)
     elif initial:
         state = ckpt.restore_weights(state, initial)
+    broadcast_module(state.model)
+    check_same_bits(state.model)
     step_fn = make_train_step(criterion, tcfg.accum_steps)
-    logger = TextLogger(os.path.join(workdir, "log.txt"),
-                        ["Epoch", "LR", "TrainLoss"])
+    lead = rank() == 0
+    verbose = verbose and lead
+    logger = (TextLogger(os.path.join(workdir, "log.txt"),
+                         ["Epoch", "LR", "TrainLoss"]) if lead else None)
     history = []
     try:
         for epoch in range(start_epoch, epochs):
@@ -129,7 +143,9 @@ def train(cfg: Config, dataset, loader, workdir: str,
                 t_end = time.time()
             train_loss = meter.avg
             history.append(train_loss)
-            logger.log(epoch + 1, state.optimizer.lr(), train_loss)
+            check_same_bits(state.model)
+            if logger is not None:
+                logger.log(epoch + 1, state.optimizer.lr(), train_loss)
             if (epoch + 1) % tcfg.epochs_per_increment == 0:
                 dataset.increase_max_skip()
             is_best = train_loss <= state.min_loss
@@ -139,5 +155,6 @@ def train(cfg: Config, dataset, loader, workdir: str,
                 ckpt.save(state, epoch + 1, dataset.max_skip,
                           is_best=is_best, periodic=periodic)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state, history

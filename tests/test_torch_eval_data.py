@@ -78,7 +78,12 @@ def clips(request):
 def test_clip_fields_equal_jax(clips):
     kind, runs = clips
     for got, want, _ in runs:
-        assert set(got) == set(want)
+        # ``image_points`` is the port's own: the ground truth in the
+        # predictions' frame (``test_torch_eval_gt_frame.py``), one lane a
+        # lane of ``points``
+        assert set(got) == set(want) | {"image_points"}
+        assert [len(p) for p in got["image_points"]] == [
+            len(p) for p in got["points"]]
         for key in want:
             if key in ("frames", "labels", "points"):
                 continue

@@ -69,7 +69,10 @@ def test_port_sources_exist():
             "phnet_torch/evaluation/tusimple_acc.py",
             "phnet_torch/utils/torch_import.py",
             "phnet_torch/run/test_vil.py", "phnet_torch/run/test_ol.py",
-            "phnet_torch/run/evaluate.py"} <= names
+            "phnet_torch/run/evaluate.py",
+            "phnet_torch/parallel/__init__.py",
+            "phnet_torch/parallel/mesh.py",
+            "phnet_torch/parallel/multihost.py"} <= names
     assert (REPO / "phnet_torch" / "csrc" / "w8_matmul.cu").is_file()
     for src in ("data/native/clip_loader.cpp",
                 "data/native/nvjpeg_decode.cpp",

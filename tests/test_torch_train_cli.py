@@ -10,14 +10,17 @@ Each run must train the compute dtype the flags ask for (bfloat16 unless
 ``--fp32``, as ``train_vil.py`` and ``train_ol.py``) and the variant
 (OpenLane-V's ``--variant single``, ``multiscale`` or ``propagate``),
 write its log and checkpoints, resume, and end with finite epoch losses.
-What the port does not train yet refuses clearly.
+``--devices 2 --device cpu`` trains over two gloo processes. What the
+port does not train refuses clearly.
 """
 
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
+import _torch_dist_worker as worker
 import phnet_torch.config as tcfgmod
 import phnet_tpu.config as jcfgmod
 import torch_parity as tp
@@ -171,11 +174,54 @@ def test_what_is_not_ported_refuses_clearly(tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--data-root", "/data/OpenLane"], "no OpenLane-V at .*; pass the "
                                         "directory holding OpenLane/"),
-    (["--synthetic", "--devices", "2"], "more than one device"),
+    (["--synthetic", "--devices", "2", "--batch", "3"],
+     "a global batch of 3 clips does not split over 2 ranks"),
 ])
 def test_openlane_cli_clear_errors(argv, match):
     with pytest.raises(SystemExit, match=match):
         ol_cli.main(argv)
+
+
+def test_vil_cli_trains_over_two_cpu_processes(tmp_path):
+    """``--devices 2 --device cpu``: the command line starts two gloo
+    ranks, which train one epoch of the small model (4 clips, a global
+    batch of 2: two steps); rank 0 alone writes the log (one header, one
+    epoch line) and the checkpoints (``tests/_torch_dist_worker.py``, case
+    ``cli``, in a subprocess with a time limit)."""
+    work = tmp_path / "work"
+    (out,) = worker.run_ranks("cli", 1, str(tmp_path / "out"), str(work))
+    assert len(out["history"]) == 1 and np.isfinite(out["history"][0])
+    assert sorted(p.name for p in work.iterdir()) == [
+        "best.pt", "epoch_1.pt", "log.txt"]
+    lines = (work / "log.txt").read_text().splitlines()
+    assert [l.split("\t")[0] for l in lines] == ["Epoch", "1"]
+    saved = torch.load(work / "epoch_1.pt", weights_only=True)
+    assert saved["step"] == 2 and saved["epoch"] == 1
+
+
+def test_vil_cli_joins_a_torchrun_group(tmp_path, monkeypatch):
+    """Under torchrun's variables (here a group of one gloo rank) the
+    command line joins the group from the environment, trains as one
+    process does, bit for bit, and leaves the group."""
+    import torch.distributed as dist
+
+    argv = ["--synthetic", "--epochs", "1", "--frames", "2",
+            "--synthetic-videos", "2", "--fp32", "--device", "cpu"]
+    alone = vil_cli.main(argv + ["--workdir", str(tmp_path / "alone")],
+                         cfg=worker.small_cfg())
+    for key, value in (("MASTER_ADDR", "127.0.0.1"),
+                       ("MASTER_PORT", str(worker.free_port())),
+                       ("WORLD_SIZE", "1"), ("RANK", "0"),
+                       ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(key, value)
+    grouped = vil_cli.main(argv + ["--workdir", str(tmp_path / "group")],
+                           cfg=worker.small_cfg())
+    assert not dist.is_initialized()
+    assert grouped == alone and np.isfinite(alone).all()
+    a, b = (torch.load(tmp_path / d / "epoch_1.pt", weights_only=True)
+            for d in ("alone", "group"))
+    for k, v in a["params"].items():
+        assert torch.equal(v, b["params"][k]), k
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -344,5 +344,9 @@ def test_openlane_cli_trains_on_a_training_tree(small_presets, tmp_path,
 
 @pytest.mark.parametrize("cli,root", [(vil_cli, FIXTURE), (ol_cli, None)])
 def test_clis_on_data_refuse_more_devices(cli, root, ol_root):
-    with pytest.raises(SystemExit, match="more than one device"):
-        cli.main(["--data-root", root or ol_root, "--devices", "2"])
+    """On the dataset too, ``--devices`` refuses a global batch that its
+    ranks do not divide (before any reader is built)."""
+    with pytest.raises(SystemExit, match="a global batch of 3 clips does "
+                                         "not split over 2 ranks"):
+        cli.main(["--data-root", root or ol_root, "--devices", "2",
+                  "--batch", "3"])

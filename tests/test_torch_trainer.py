@@ -358,7 +358,10 @@ def test_trainer_trains_and_resumes(tmp_path):
     (["--data-root", "/data/VIL100"], "no VIL-100 at /data/VIL100/VIL100"),
     (["--data-root", os.path.dirname(os.path.abspath(__file__))],
      "no VIL-100 at .*tests/VIL100; pass the directory holding VIL100/"),
-    (["--synthetic", "--devices", "2"], "more than one device"),
+    (["--synthetic", "--devices", "2", "--batch", "3"],
+     "a global batch of 3 clips does not split over 2 ranks"),
+    (["--synthetic", "--coordinator", "127.0.0.1:1"],
+     "--coordinator, --num-processes and --process-id go together"),
 ])
 def test_cli_clear_errors(argv, match):
     with pytest.raises(SystemExit, match=match):
