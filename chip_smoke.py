@@ -194,10 +194,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 42. the server's streams split over a mesh naming the card twice (two
     replicas of 2 streams): keep sets equal to the one-replica server's,
     kept rows and memory within 1e-3, K1 once and K2 three times a
-    replica a tick.
+    replica a tick;
+43. the training step over a mesh's model axis: two ranks on the card,
+    each a process, over gloo (NCCL refuses two ranks of one device),
+    data 1 x model 2, full-width VIL in float32 (B = 1, 2-frame clips,
+    dropout 0.1, a step and a resumed second, deterministic algorithms)
+    with the 31 kernels that ``shard_params`` splits cut in two, against
+    the same steps in one process: losses, gradient norms, checkpointed
+    parameters and BatchNorm statistics within stated bounds, the ranks'
+    bits equal, both runs' checkpoints restored at model 1, K2 12 times a
+    step in each rank.
 
-The card machine has one card: more than one rank is held on the CPU
-only (``tests/test_torch_dist_train.py``).
+The card machine has one card: more than one card's ranks are held on
+the CPU only (``tests/test_torch_dist_train.py``,
+``tests/test_torch_model_axis.py``).
 
 Phase 18 also holds K2's bf16 mode at one stream (G = 1, the plan of a
 B = 1 training step).
@@ -214,7 +224,8 @@ at the prior-propagation head's 244 rows under ``propagate_rows_*``, K1's
 and K2's launches on the other backbones' paths under ``revcol_*``,
 ``resnet50_*`` and ``groupnorm_*``, K2's in phase 41's NCCL steps
 under ``distributed_training_launches``, K1's and K2's in phase 42's
-split server under ``mesh_serving_launches``; K2's
+split server under ``mesh_serving_launches``, K2's in phase 43's ranks
+under ``model_axis_training_launches``; K2's
 bf16 mode and K3 at bf16 x as entries of their own); the last line is
 ``{"ok": true, "device": {...}}``.
 Without a card, or without the package beside it, the script exits
@@ -3070,6 +3081,309 @@ def phase_mesh_serving(torch, card, state_dict, ticks=8, streams=4):
             "one_replica_tick_p50_ms": one_p50}
 
 
+MODEL_AXIS_FRAMES = 2  # phase 43's clips: the fewest frames a clip holds
+# phase 43's bounds, each step against one process's step from the same
+# state: relative for the loss and the gradient norm, of a buffer's largest
+# entry for the running statistics
+MODEL_AXIS_BOUNDS = {"loss": 1e-5, "grad_norm": 1e-4, "batch_stats": 1e-4}
+
+
+def trainer_steps(torch, device, workdir, frames_per_clip, epochs=(1, 2),
+                  mesh=None, clips=1):
+    """Phase 43's run of ``phnet_torch.train.trainer.train``: the VIL-100
+    preset at full width in float32, decoder dropout 0.1, a checkpoint
+    every epoch, a global batch of ``clips`` synthetic videos of
+    ``frames_per_clip`` frames (a clip a data row on a mesh), under
+    deterministic algorithms:
+    each epoch of ``epochs`` one step, an epoch after the first resumed
+    from ``workdir``'s latest checkpoint; on ``mesh`` where given (the
+    group laid out on it first). Returns each step's loss and gradient
+    norm, the ops without a deterministic implementation, whether the
+    ranks hold the same bits at the end (True without a group) and the
+    count of sharded parameters."""
+    from phnet_torch.data import ClipLoader, SyntheticVideoDataset
+    from phnet_torch.parallel.multihost import (check_same_bits, data_index,
+                                                data_size, init_axes)
+    from phnet_torch.parallel.tensor import sharded_names
+    from phnet_torch.train import trainer
+
+    cfg = train_config(0.1, epoch_per_test=1)
+    m, t = cfg.model, cfg.train
+    if mesh is not None:
+        init_axes(mesh)  # before the loader shards over the data axis
+    steps, walls = [], []
+    make_step = trainer.make_train_step
+
+    def recording(criterion, accum):
+        step = make_step(criterion, accum)
+
+        def run(state, frames, labels, seed):
+            state, metrics = step(state, frames, labels, seed)
+            steps.append({"loss": metrics["loss"].item(),
+                          "grad_norm": metrics["grad_norm"].item()})
+            return state, metrics
+
+        return run
+
+    trainer.make_train_step = recording
+    t0 = time.perf_counter()
+    try:
+        with deterministic(torch) as notes:
+            for epoch in epochs:
+                e0 = time.perf_counter()
+                timings = []
+                ds = SyntheticVideoDataset(
+                    n_videos=clips, frames_per_video=frames_per_clip,
+                    img_h=m.img_h, img_w=m.img_w, spec=m.lane,
+                    max_lanes=m.max_lanes, skip_increment=t.skip_increment,
+                    max_training_skip=t.max_training_skip)
+                loader = ClipLoader(ds, batch_size=clips // data_size(),
+                                    seed=t.seed,
+                                    num_shards=data_size(),
+                                    shard_index=data_index(), prefetch=0)
+                state, _ = trainer.train(cfg, ds, loader, workdir,
+                                         epochs=epoch, resume=epoch > 1,
+                                         device=device, verbose=False,
+                                         mesh=mesh, timings=timings)
+                walls.append((timings[0][1], time.perf_counter() - e0))
+        t1 = time.perf_counter()
+        try:
+            check_same_bits(state.model)
+            same = True
+        except RuntimeError:
+            same = False
+    finally:
+        trainer.make_train_step = make_step
+    return {"steps": steps, "notes": notes, "same_bits": same,
+            "sharded": len(sharded_names(state.model)), "walls": walls,
+            "outside_s": (t1 - t0 - sum(w for _, w in walls),
+                          time.perf_counter() - t1)}
+
+
+def model_axis_rank(rank, world, port, workdir, out, frames_per_clip,
+                    model_parallel, backend):
+    """One rank of phase 43, in a process of its own: the group on
+    ``backend``, every rank on ``cuda:0`` with gloo (NCCL refuses two
+    ranks of one device), rank r on ``cuda:r`` with NCCL, laid out as
+    data ``world / model_parallel`` x model ``model_parallel``;
+    :func:`trainer_steps` with the mesh, a clip a data row; the rank's K2
+    launches (its counters start at 0 in this process) and what
+    :func:`trainer_steps` gives, saved to ``out``."""
+    import torch
+
+    from phnet_torch.ops import router_chain as trc
+    from phnet_torch.parallel import initialize, make_mesh
+    from phnet_torch.parallel.multihost import shutdown
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // (world + 1)))
+    dev = initialize(f"127.0.0.1:{port}", world, rank, backend=backend,
+                     device="cuda:0" if backend == "gloo" else f"cuda:{rank}")
+    try:
+        devices = ([dev] * world if backend == "gloo" else
+                   [f"cuda:{r}" for r in range(world)])
+        mesh = make_mesh(devices=devices, model_parallel=model_parallel)
+        t0 = time.perf_counter()
+        start_s = t0 - t_start
+        got = trainer_steps(torch, dev, workdir, frames_per_clip, mesh=mesh,
+                            clips=world // model_parallel)
+        got["seconds"] = time.perf_counter() - t0
+        got["start_s"] = start_s
+        got["k2"] = (trc.router_chain.launches,
+                     trc.router_chain.launches_bf16)
+        got["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    finally:
+        shutdown()
+    torch.save(got, out)
+
+
+def start_ranks(world, port, workdir, outs, frames_per_clip, model_parallel,
+                backend):
+    """:func:`model_axis_rank` in ``world`` processes (this script's
+    directory on their path)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for name in ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME"):
+        env.setdefault(name, "lo")
+    return [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke as c; a = "
+         "sys.argv; c.model_axis_rank(int(a[1]), int(a[2]), int(a[3]), "
+         "a[4], a[5], int(a[6]), int(a[7]), a[8])", str(r), str(world),
+         str(port), workdir, outs[r], str(frames_per_clip),
+         str(model_parallel), backend],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        start_new_session=True) for r in range(world)]
+
+
+def wait_ranks(procs, timeout=600):
+    """Wait for every rank; on a failure, or at ``timeout`` seconds, stop
+    them all and raise with the end of each one's output."""
+    logs, failed = [], False
+    try:
+        for proc in procs:
+            log, _ = proc.communicate(timeout=timeout)
+            logs.append(log.decode(errors="replace"))
+            failed |= proc.returncode != 0
+    except subprocess.TimeoutExpired:
+        failed = True
+        logs.append(f"timed out after {timeout} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    if failed:
+        raise AssertionError("[model axis training] a rank failed:\n"
+                             + "\n---\n".join(l[-3000:] for l in logs))
+
+
+def phase_model_axis_training(torch, card,
+                              frames_per_clip=MODEL_AXIS_FRAMES, data=1,
+                              model=2, backend="gloo"):
+    """Phase 43: the training step over a mesh's model axis on the card.
+    Two processes, each a rank on ``cuda:0`` over gloo (the backend
+    named to ``initialize``: NCCL refuses two ranks of one device), laid
+    out as data 1 x model 2, run :func:`trainer_steps` (full-width VIL in
+    float32, B = 1, dropout 0.1, a step, then a second resumed from the
+    first's checkpoint); with ``data``, ``model`` and ``backend="nccl"``,
+    ``data * model`` ranks a card each (B = ``data``), the layout that
+    more than one card takes: the 31 kernels that ``shard_params`` splits at
+    its default ``min_size`` cut in two, their outputs joined over the
+    model axis. Meanwhile this process runs the first step alone from the
+    same seed; then it resumes the ranks' first checkpoint (written whole
+    by rank 0) at model 1 for the second step. Each step is held to the
+    one-process step from the same state: the loss, the gradient norm and
+    the BatchNorm statistics within :data:`MODEL_AXIS_BOUNDS`, the
+    parameters within AdamW's update bound (an entry moves by about the
+    rate a step whatever its gradient's size, so one whose gradient is
+    rounding noise may move either way: 2 x rate x (1 + decay)). Also:
+    every rank's parameters and buffers the same bits over the group
+    (whole ones) and the data group (blocks), the 31 parameters sharded,
+    K2 launched 3 times a frame and again in the remat recompute in each
+    rank's step, and the ranks' checkpoints in a one-process file's
+    layout. Prints the differences and the time of each part."""
+    import shutil
+
+    from phnet_torch.train.cli import free_port
+
+    cfg = train_config(0.1, epoch_per_test=1)
+    world = data * model
+    t0 = time.perf_counter()
+    names = ("epoch_1.pt", "epoch_2.pt")
+    with tempfile.TemporaryDirectory() as root:
+        tp_dir, one_dir, resumed_dir = (os.path.join(root, d) for d in (
+            "tp", "one", "resumed"))
+        for d in (tp_dir, one_dir, resumed_dir):
+            os.makedirs(d)
+        outs = [os.path.join(root, f"rank{r}.pt") for r in range(world)]
+        procs = start_ranks(world, free_port(), tp_dir, outs,
+                            frames_per_clip, model, backend)
+        try:  # step 1 alone, while the ranks run theirs
+            one = trainer_steps(torch, torch.device("cuda:0"), one_dir,
+                                frames_per_clip, epochs=(1,), clips=data)
+        finally:
+            t_one = time.perf_counter() - t0
+            wait_ranks(procs)
+        t_ranks = time.perf_counter() - t0
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+        # step 2 alone, from the ranks' first checkpoint (model 2 -> 1)
+        shutil.copy(os.path.join(tp_dir, names[0]), resumed_dir)
+        t1 = time.perf_counter()
+        two = trainer_steps(torch, torch.device("cuda:0"), resumed_dir,
+                            frames_per_clip, epochs=(2,), clips=data)
+        t_two = time.perf_counter() - t1
+
+        def load(d, name):  # mapped: only the compared tensors are read
+            return torch.load(os.path.join(d, name), map_location="cpu",
+                              weights_only=True, mmap=True)
+
+        pairs = [(load(one_dir, names[0]), load(tp_dir, names[0])),
+                 (load(resumed_dir, names[1]), load(tp_dir, names[1]))]
+    steps = len(ranks[0]["steps"])
+    per_step = 2 * chain_per_frame(cfg) * frames_per_clip
+    errs = []
+    for r, got in enumerate(ranks):
+        if got["k2"] != (per_step * steps, 0):
+            errs.append(f"rank {r}: K2 launches (float32, bf16) {got['k2']}, "
+                        f"want {per_step} a step over {steps} steps")
+        if not got["same_bits"]:
+            errs.append(f"rank {r}: the ranks' bits differ")
+        if got["sharded"] != 31:
+            errs.append(f"rank {r}: {got['sharded']} parameters sharded, "
+                        f"want the 31 that shard_params splits")
+        if got["steps"] != ranks[0]["steps"]:
+            errs.append(f"rank {r}: its losses differ from rank 0's")
+    bounds = MODEL_AXIS_BOUNDS
+    lr, wd = cfg.train.learning_rate, cfg.train.weight_decay
+    param_bound = 2 * lr * (1 + wd) + 1e-6
+    apart = []  # a step: loss, grad_norm (relative), parameters' worst
+    # |difference|, entries apart by more than 1e-6, the statistics' worst
+    # |difference| of their buffer's largest |entry|
+    alone = one["steps"] + two["steps"]
+    for k, ((a, b), x, y) in enumerate(zip(pairs, alone, ranks[0]["steps"])):
+        if {n: (v.shape, v.dtype) for n, v in a["params"].items()} != {
+                n: (v.shape, v.dtype) for n, v in b["params"].items()}:
+            errs.append(f"step {k + 1}: the checkpoints' layouts differ")
+            continue
+        worst_p, moved, worst_s = 0.0, 0, 0.0
+        for key, v in a["params"].items():
+            d = (v - b["params"][key]).abs()
+            worst_p = max(worst_p, float(d.max()))
+            moved += int((d > 1e-6).sum())
+        for key, v in a["batch_stats"].items():
+            worst_s = max(worst_s, float(
+                (v - b["batch_stats"][key]).abs().max()
+                / v.abs().max().clamp(min=1e-12)))
+        rel = {q: abs(x[q] - y[q]) / abs(x[q]) for q in x}
+        apart.append((rel["loss"], rel["grad_norm"], worst_p, moved,
+                      worst_s))
+        if rel["loss"] > bounds["loss"] or rel["grad_norm"] > bounds[
+                "grad_norm"] or worst_p > param_bound or worst_s > bounds[
+                "batch_stats"] or not np.isfinite(x["loss"]):
+            errs.append(f"step {k + 1} against one process: loss "
+                        f"{rel['loss']:.3g}, grad_norm {rel['grad_norm']:.3g}"
+                        f" (bounds {bounds['loss']}, {bounds['grad_norm']}),"
+                        f" parameters {worst_p:.3g} ({param_bound:.3g}), "
+                        f"BatchNorm statistics {worst_s:.3g} "
+                        f"({bounds['batch_stats']})")
+    n_params = sum(v.numel() for v in pairs[0][0]["params"].values())
+    notes = sorted(set(one["notes"] + two["notes"] + ranks[0]["notes"]))
+    where = ("gloo ranks on one card" if backend == "gloo" else
+             f"{backend} ranks, a card each")
+    print(f"[model axis training] VIL f32 full width, B={data}, "
+          f"{frames_per_clip}-frame clips, dropout 0.1, a step and a resumed "
+          f"second: data {data} x model {model} ({world} {where}), each step "
+          f"against one process's from the same state (the second resumed "
+          f"at model 1 from the ranks' first checkpoint): losses "
+          f"{[s['loss'] for s in ranks[0]['steps']]} / "
+          f"{[s['loss'] for s in alone]}; by step (loss and grad_norm "
+          f"relative / parameters' worst |difference| (bound "
+          f"{param_bound:.3g}) / entries of {n_params} apart by more than "
+          f"1e-6 / BatchNorm statistics' worst, of the buffer's largest): "
+          + "; ".join(f"{l:.3g} {g:.3g} / {p:.3g} / {m} / {st:.3g}"
+                      for l, g, p, m, st in apart)
+          + f"; the ranks' bits equal: {[g['same_bits'] for g in ranks]}; "
+          f"sharded {[g['sharded'] for g in ranks]}; K2 launches (rank: "
+          f"float32, bf16) {[g['k2'] for g in ranks]}, want {per_step} a "
+          f"step; ranks' two epochs {[round(g['seconds'], 2) for g in ranks]}"
+          f" s (rank 0: group start {ranks[0]['start_s']:.2f} s, (step, "
+          f"epoch) walls "
+          f"{[(round(a, 2), round(b, 2)) for a, b in ranks[0]['walls']]} s, "
+          f"around them {[round(x, 2) for x in ranks[0]['outside_s']]} s; "
+          f"peak {[round(g['peak_mib']) for g in ranks]} MiB), ranks' "
+          f"processes {t_ranks:.1f} s, one process's first step "
+          f"{t_one:.1f} s (beside them), its resumed second {t_two:.1f} s; "
+          f"ops without a deterministic implementation: {notes or 'none'}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    if errs:
+        raise AssertionError("[model axis training] " + "; ".join(errs))
+    return {"router_chain": sum(g["k2"][0] for g in ranks),
+            "k2_per_step_per_rank": per_step, "apart": apart}
+
+
 def lap(t0, tag):
     """Print the seconds since the script started, after ``tag``."""
     print(f"[time] {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3175,6 +3489,8 @@ def main() -> int:
     distributed = phase_distributed_training(torch, card)
     mesh_serving = phase_mesh_serving(torch, card, state_dict)
     lap(t0, "phases 41-42")
+    model_axis = phase_model_axis_training(torch, card)
+    lap(t0, "phase 43")
 
     w8_ms_frame = stage_sum(w8_ms, 4, [name for name, _, _ in ms_products])
     single, multi = "openlane_config", "openlane_multiscale_config"
@@ -3247,6 +3563,9 @@ def main() -> int:
             # phase 41: the NCCL trainer's steps at world size 1
             kernels[-1]["distributed_training_launches"] = \
                 distributed["router_chain"]
+            # phase 43: both ranks' steps over the model axis
+            kernels[-1]["model_axis_training_launches"] = \
+                model_axis["router_chain"]
         if name != "w8_matmul":  # phase 42: the split server's ticks
             kernels[-1]["mesh_serving_launches"] = mesh_serving[name]
     for name, base, numbers, source, count in (  # the bf16 paths' entries

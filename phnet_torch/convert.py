@@ -31,10 +31,11 @@ and leaves are laid out for PyTorch:
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 _PATH_RULES = [
     (r"^(params|batch_stats)/encoder/", "encoder/"),
@@ -76,14 +77,33 @@ def torch_key(path: Tuple[str, ...], ndim: int) -> Tuple[str, str]:
     return ".".join(mod + [leaf]), change
 
 
+# torch dim i of a kernel is flax dim LAYOUTS[change][i]
+LAYOUTS = {"linear": (1, 0), "conv1d": (2, 1, 0), "conv": (3, 2, 0, 1)}
+
+
 def _relayout(x: np.ndarray, change: str) -> np.ndarray:
-    if change == "linear":
-        return x.T
-    if change == "conv1d":
-        return x.transpose(2, 1, 0)
-    if change == "conv":
-        return x.transpose(3, 2, 0, 1)
-    return x
+    return x.transpose(LAYOUTS[change]) if change else x
+
+
+def flax_shape(shape: Sequence[int], change: str) -> Tuple[int, ...]:
+    """The flax leaf's shape of a port tensor of ``shape``."""
+    out = list(shape)
+    for i, f in enumerate(LAYOUTS.get(change, ())):
+        out[f] = shape[i]
+    return tuple(out)
+
+
+def module_layout(module: nn.Module, leaf: str) -> str:
+    """The layout change of ``module``'s tensor ``leaf`` (:func:`torch_key`'s,
+    from the port's side): "linear", "conv1d", "conv" for the weight of a
+    Linear, Conv1d or Conv2d, "" for anything else."""
+    if leaf != "weight":
+        return ""
+    for cls, change in ((nn.Linear, "linear"), (nn.Conv1d, "conv1d"),
+                        (nn.Conv2d, "conv")):
+        if isinstance(module, cls):
+            return change
+    return ""
 
 
 def plan(shapes: Mapping) -> Dict[str, Tuple[Tuple[str, ...], Tuple[int, ...]]]:
@@ -97,10 +117,8 @@ def plan(shapes: Mapping) -> Dict[str, Tuple[Tuple[str, ...], Tuple[int, ...]]]:
         if key in out:
             raise ValueError(f"{'/'.join(path)} and "
                              f"{'/'.join(out[key][0])} both map to {key}")
-        if change in ("linear", "conv1d"):
-            shape = shape[::-1]
-        elif change == "conv":
-            shape = (shape[3], shape[2], shape[0], shape[1])
+        if change:
+            shape = tuple(shape[f] for f in LAYOUTS[change])
         out[key] = (path, shape)
     return out
 

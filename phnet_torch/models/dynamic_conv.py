@@ -23,6 +23,9 @@ output MLPs (1536 -> 512 -> 256) and the first generators of stages 0 and
 the natural d-major order (the JAX package's c-major permutation is a
 layout choice of the TPU; a column permutation commutes with per-column
 quantization, so it is the same function in the quantized modes too).
+Over a mesh's model axis (training) a chain with a sharded generator is
+a :class:`phnet_torch.parallel.tensor.Chain`: the same combine, with the
+split kept on the combined kernel where it can be.
 The second generator reads its input detached, as the reference does
 (``dynamic_head.py:48-50``). In train mode :meth:`combine_weights` keeps
 the autograd graph, so the combined-to-factored chain rule runs once per
@@ -59,6 +62,7 @@ from ..config import check_quantize
 from ..ops.quant import (int8_matmul_prequant, int8_weight_layout,
                          quantize_colwise)
 from ..ops.w8_matmul import w8_matmul
+from ..parallel.tensor import Chain, is_sharded
 from .mixed import cast, layer_norm, widen
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -125,14 +129,20 @@ class DynamicConv(nn.Module):
                                     and torch.is_grad_enabled()):
             return self._combine()
 
-    def _combine(self) -> Dict[str, Union[tuple, Dict]]:
+    def _combine(self) -> Dict[str, Union[tuple, Dict, Chain]]:
         out = {}
         for name in ("gen1", "gen2", "out"):
             la, lb = getattr(self, name + "_a"), getattr(self, name + "_b")
             ka, kb = la.weight.t(), lb.weight.t()
             collapse = collapse_wins(la.in_features, la.out_features,
                                      lb.out_features)
-            if self.quantize == "none":
+            if is_sharded(la) or is_sharded(lb):
+                if self.quantize != "none":
+                    raise NotImplementedError(
+                        "a quantized DynamicConv sharded over the model "
+                        "axis (the server replicates its weights)")
+                out[name] = Chain(la, lb, collapse, self.dtype)
+            elif self.quantize == "none":
                 out[name] = tuple(cast(t, self.dtype) for t in (
                     (ka @ kb, la.bias @ kb + lb.bias) if collapse
                     else (ka.contiguous(), la.bias, kb.contiguous(),
@@ -154,6 +164,8 @@ class DynamicConv(nn.Module):
     def _affine(self, x, pre):
         """A chain on x in the compute dtype, its output in it too (a
         factored quantized chain keeps its middle value in float32)."""
+        if isinstance(pre, Chain):
+            return pre(x)
         if self.quantize == "none":
             if len(pre) == 2:
                 return x @ pre[0] + pre[1]

@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from ..config import ModelConfig
+from ..parallel.tensor import is_sharded
 
 
 def compute_dtype(cfg: ModelConfig) -> Optional[torch.dtype]:
@@ -43,8 +44,9 @@ def widen(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """flax ``Dense`` in x's dtype: for bf16 the product rounded to bf16,
-    then the bias added in bf16; ``lin(x)`` otherwise."""
-    if x.dtype != torch.bfloat16:
+    then the bias added in bf16; ``lin(x)`` otherwise, and for a layer
+    sharded over the mesh's model axis (whose forward casts alike)."""
+    if x.dtype != torch.bfloat16 or is_sharded(lin):
         return lin(x)
     return x @ lin.weight.to(x.dtype).t() + lin.bias.to(x.dtype)
 

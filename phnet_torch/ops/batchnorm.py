@@ -19,8 +19,11 @@ global batch, as ``SyncBatchNorm``'s: the forward all-reduces the
 per-channel sums of x and x^2 and the count, the backward the sums of g
 and g * x_hat before it forms ``dx``; the parameters' gradients stay the
 rank's own sums (the step's gradient mean makes them the global ones).
-The all-reduced sums are float64. With one rank nothing is all-reduced
-and the arithmetic is the one-process arithmetic above.
+The all-reduced sums are float64. On a mesh with a model axis the sums
+run over the data group alone: the ranks of one model group hold the
+same rows, which the world's sum would count once a rank. With one rank
+along data nothing is all-reduced and the arithmetic is the one-process
+arithmetic above.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Tuple
 
 import torch
 
-from ..parallel.multihost import all_reduce_sum, is_multihost
+from ..parallel.multihost import all_reduce_sum, data_size
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -46,11 +49,11 @@ def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _global_sums(*sums: torch.Tensor, count: int):
-    """The per-channel ``sums`` and the ``count`` summed over the ranks,
-    in float64: (the sums, the count)."""
+    """The per-channel ``sums`` and the ``count`` summed over the data
+    axis's ranks, in float64: (the sums, the count)."""
     buf = torch.cat([s.double() for s in sums] + [
         sums[0].new_full((1,), count, dtype=torch.float64)])
-    all_reduce_sum(buf)
+    all_reduce_sum(buf, "data")
     c = sums[0].shape[0]
     return [buf[i * c:(i + 1) * c] for i in range(len(sums))], buf[-1]
 
@@ -61,7 +64,7 @@ def bn_batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     x32 = _wide(x)
     n = x.numel() // x.shape[1]
     sum_x, sum_x2 = x32.sum(_axes(x)), (x32 * x32).sum(_axes(x))
-    if is_multihost():
+    if data_size() > 1:
         (sum_x, sum_x2), count = _global_sums(sum_x, sum_x2, count=n)
         mean = (sum_x / count).to(x32.dtype)
         mean2 = (sum_x2 / count).to(x32.dtype)
@@ -92,7 +95,7 @@ class BatchNormTrainFn(torch.autograd.Function):
         xhat = (_wide(x) - _per_channel(mean, x)) * _per_channel(r, x)
         sum_g = g32.sum(axes)
         sum_gx = (g32 * xhat).sum(axes)
-        if is_multihost():
+        if data_size() > 1:
             (all_g, all_gx), count = _global_sums(sum_g, sum_gx, count=n)
             mean_g = (all_g / count).to(g32.dtype)
             mean_gx = (all_gx / count).to(g32.dtype)

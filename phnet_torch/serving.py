@@ -28,7 +28,9 @@ uploads every device's frames, then dispatches every device's step
 before it waits on any; :meth:`StreamingServer.decode` gathers the kept
 rows on the host. The router chain's mode is resolved from the global
 ``max_streams``. A mesh may name one device more than once (replicas
-sharing a card).
+sharing a card). A ``model`` axis replicates the weights over each data
+row, as the JAX server replicates its variables over the whole mesh:
+the row's first device serves it.
 """
 
 from __future__ import annotations
@@ -138,9 +140,12 @@ class StreamingServer:
     ``state_dict``: the port's weights (for example
     ``phnet_torch.convert.convert`` of a JAX checkpoint). ``device=None``
     serves on the card; ``mesh`` splits the streams over its ``data``
-    axis (``max_streams`` must be a multiple of its size) and takes the
-    place of ``device``. ``self.cfg`` is ``cfg`` with the router chain's
-    mode resolved (:func:`resolve_chain_bf16`) from ``max_streams``."""
+    axis (``max_streams`` must be a multiple of its size), one replica a
+    data row on the row's first device, and takes the place of
+    ``device``; its ``model`` axis replicates the weights, as the JAX
+    server's mesh does, so the result is the data-only mesh's.
+    ``self.cfg`` is ``cfg`` with the router chain's mode resolved
+    (:func:`resolve_chain_bf16`) from ``max_streams``."""
 
     def __init__(self, cfg: Config, state_dict: Mapping[str, torch.Tensor],
                  max_streams: int = 4, memory_window: int = None,
@@ -153,10 +158,6 @@ class StreamingServer:
             if "data" not in mesh.axis_names:
                 raise ValueError(f"mesh needs a 'data' axis to split streams "
                                  f"over (got axes {mesh.axis_names})")
-            if mesh.shape.get("model", 1) != 1:
-                raise NotImplementedError(
-                    "a mesh with a model axis: shard_params is not ported "
-                    "yet (ROADMAP.md Queue 1 item 3.3)")
             devices = [resolve_device(d) for d in mesh.data_devices()]
             if max_streams % len(devices):
                 raise ValueError(

@@ -11,7 +11,12 @@ of the JAX package are not read.
 
 In a process group rank 0 alone writes, as the JAX package's
 ``phnet_tpu/train/checkpoint.py:46``, and every rank waits at a barrier
-after the save; every rank reads the same files.
+after the save; every rank reads the same files. A model sharded over a
+mesh's model axis (:mod:`phnet_torch.parallel.tensor`) is saved whole:
+every rank takes part in gathering the parameters and the optimizer's
+moments, and the file is the one a one-process run writes; restoring
+cuts whole tensors to the rank's blocks, so that a checkpoint resumes
+at any model axis size.
 """
 
 from __future__ import annotations
@@ -22,12 +27,13 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from ..parallel.multihost import barrier, rank
+from ..parallel.tensor import full_state_dict, load_full_state_dict
 from .state import TrainState
 
 
 def _split(model) -> Dict[str, Dict[str, torch.Tensor]]:
     buffers = {n for n, _ in model.named_buffers()}
-    sd = model.state_dict()
+    sd = full_state_dict(model)
     return {"params": {k: v for k, v in sd.items() if k not in buffers},
             "batch_stats": {k: v for k, v in sd.items() if k in buffers}}
 
@@ -48,9 +54,12 @@ class CheckpointManager:
 
     def save(self, state: TrainState, epoch: int, max_skip: int,
              is_best: bool = False, periodic: bool = True):
+        whole = dict(_split(state.model),
+                     opt_state=state.optimizer.state_dict())
         if rank() == 0:
-            payload = dict(_split(state.model), step=state.step,
-                           opt_state=state.optimizer.state_dict(),
+            payload = dict(params=whole["params"],
+                           batch_stats=whole["batch_stats"], step=state.step,
+                           opt_state=whole["opt_state"],
                            min_loss=float(state.min_loss), epoch=int(epoch),
                            max_skip=int(max_skip))
             if periodic:
@@ -80,8 +89,8 @@ class CheckpointManager:
         """Resume everything: returns (state, epoch to start from,
         max_skip)."""
         payload = self.restore(name, _device(state.model))
-        state.model.load_state_dict({**payload["params"],
-                                     **payload["batch_stats"]})
+        load_full_state_dict(state.model, {**payload["params"],
+                                           **payload["batch_stats"]})
         state.optimizer.load_state_dict(payload["opt_state"])
         state.step = int(payload["step"])
         state.min_loss = float(payload["min_loss"])
@@ -91,6 +100,6 @@ class CheckpointManager:
         """Weights-only initialisation (the reference's ``initial_model``):
         parameters and BatchNorm statistics."""
         payload = self.restore(name, _device(state.model))
-        state.model.load_state_dict({**payload["params"],
-                                     **payload["batch_stats"]})
+        load_full_state_dict(state.model, {**payload["params"],
+                                           **payload["batch_stats"]})
         return state

@@ -223,7 +223,7 @@ def _rank(i, cfg, ranks, real_dataset, result):
 def _train(cfg, args, real_dataset, device):
     """One process's training run (a rank's, in a group)."""
     from ..data import ClipLoader, SyntheticVideoDataset
-    from ..parallel.multihost import rank, world_size
+    from ..parallel.multihost import data_index, data_size, rank
     from .trainer import train
 
     tcfg, m = cfg.train, cfg.model
@@ -236,10 +236,10 @@ def _train(cfg, args, real_dataset, device):
             max_training_skip=tcfg.max_training_skip)
     else:
         dataset = real_dataset(args, cfg, frames)
-    world = world_size()
+    shards = data_size()  # the ranks of one model group load alike
     loader = ClipLoader(dataset, batch_size=global_batch(
-        args, tcfg.train_batch) // world, seed=tcfg.seed, num_shards=world,
-        shard_index=rank())
+        args, tcfg.train_batch) // shards, seed=tcfg.seed, num_shards=shards,
+        shard_index=data_index())
     timings = []
     _, history = train(cfg, dataset, loader, args.workdir,
                        resume=args.resume, initial=args.init,

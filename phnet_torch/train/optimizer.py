@@ -17,6 +17,14 @@ scale, which scales the whole update, weight decay included, as the JAX
 package's scaled update does. :func:`revcol_layer_scales` gives RevCol's
 layer-wise decay. The trainer passes none, as the JAX trainer passes
 none.
+
+On a mesh with a model axis (:mod:`phnet_torch.parallel.tensor`) a
+sharded parameter's moments live with its block (AdamW and SGD act
+entry by entry), the global norm counts each sharded entry once (the
+squares of the blocks summed over the model group, plus the whole
+parameters' once), and :meth:`Optimizer.state_dict` holds whole tensors,
+as a one-process run's: the moments are gathered (every rank calls it)
+and :meth:`Optimizer.load_state_dict` cuts whole ones to the blocks.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig
+from ..parallel.multihost import all_reduce_sum
+from ..parallel.tensor import cut_like, gather_like, placement
 
 
 def decay_mask(params: Iterable[torch.Tensor]) -> List[bool]:
@@ -94,11 +104,24 @@ def revcol_layer_scales(names: Iterable[str],
     return [scales[min(layer_id(n), num_layers)] for n in names]
 
 
-def global_norm(tensors: Iterable[Optional[torch.Tensor]]) -> torch.Tensor:
+def global_norm(tensors: Iterable[Optional[torch.Tensor]],
+                sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """The L2 norm over every entry of ``tensors`` (None skipped), one
-    scalar on their device."""
+    scalar on their device. ``sharded`` marks the tensors that are blocks
+    of a tensor cut over the model axis: their squares are summed over the
+    model group."""
+    tensors = list(tensors)
+    sharded = sharded or [False] * len(tensors)
     ts = [t for t in tensors if t is not None]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts)))
+    if not any(sharded):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(ts)))
+    whole = [t for t, s in zip(tensors, sharded) if t is not None and not s]
+    cut = [t for t, s in zip(tensors, sharded) if t is not None and s]
+    cut_sq = torch.stack(torch._foreach_norm(cut)).square().sum()
+    whole_sq = (torch.stack(torch._foreach_norm(whole)).square().sum()
+                if whole else torch.zeros_like(cut_sq))
+    return torch.sqrt(whole_sq + all_reduce_sum(cut_sq.reshape(1),
+                                                "model")[0])
 
 
 class Optimizer:
@@ -161,7 +184,8 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = global_norm(grads, [placement(p) is not None
+                                   for p in self.params])
         if self.clip > 0:
             scale = torch.clamp(self.clip / norm, max=1.0)
             torch._foreach_mul_([g for g in grads if g is not None], scale)
@@ -176,12 +200,30 @@ class Optimizer:
     def zero_grad(self):
         self.opt.zero_grad(set_to_none=True)
 
+    def _placements(self):
+        """The placement of each parameter by its index in the torch
+        optimizer's ``state_dict`` (its groups' order)."""
+        params = [p for g in self.opt.param_groups for p in g["params"]]
+        return [placement(p) for p in params]
+
     def state_dict(self):
-        return {"count": self.count, "torch": self.opt.state_dict()}
+        sd = self.opt.state_dict()
+        pls = self._placements()
+        if any(pl is not None for pl in pls):
+            sd = dict(sd, state={i: {k: gather_like(v, pls[i])
+                                     for k, v in st.items()}
+                                 for i, st in sd["state"].items()})
+        return {"count": self.count, "torch": sd}
 
     def load_state_dict(self, sd):
         self.count = int(sd["count"])
-        self.opt.load_state_dict(sd["torch"])
+        sd = sd["torch"]
+        pls = self._placements()
+        if any(pl is not None for pl in pls):
+            sd = dict(sd, state={i: {k: cut_like(v, pls[int(i)])
+                                     for k, v in st.items()}
+                                 for i, st in sd["state"].items()})
+        self.opt.load_state_dict(sd)
 
 
 def build_optimizer(tcfg: TrainConfig, total_steps: int,

@@ -23,6 +23,13 @@ update, so that every rank makes the global batch's update; the metrics
 are all-reduced to their mean too, so that every rank reports (and
 judges) the global loss. Micro-batch k is every rank's local micro-batch
 k together.
+
+On a mesh with a model axis (:mod:`phnet_torch.parallel.tensor`) a
+sharded parameter's gradient is its mean over the rank's data group (the
+ranks holding the same block), and a whole parameter's its mean over the
+world: the m ranks of a data row computed it from the same rows, so that
+is the data mean, and it gives every rank the same bits whether or not a
+backward's kernels do. The metrics are their mean over the data group.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ import torch
 
 from ..device import full_f32
 from ..losses.criterion import LaneCriterion
-from ..parallel.multihost import all_reduce_mean, in_group
+from ..parallel.multihost import all_reduce_mean, in_group, model_size
+from ..parallel.tensor import placement
 from .state import TrainState
 
 
@@ -92,12 +100,23 @@ def make_train_step(criterion: LaneCriterion,
 def mean_gradients(params):
     """Every parameter's gradient replaced by its mean over the ranks,
     through one flat buffer (a parameter the loss did not reach takes a
-    zero gradient first, as the update gives it)."""
+    zero gradient first, as the update gives it); on a mesh with a model
+    axis, a sharded parameter's over its data group, in a second
+    buffer."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params]
-    flat = all_reduce_mean(torch.cat([g.reshape(-1) for g in grads]))
+    if model_size() == 1:
+        _mean_flat([p.grad for p in params], None)
+        return
+    _mean_flat([p.grad for p in params if placement(p) is None], None)
+    _mean_flat([p.grad for p in params if placement(p) is not None], "data")
+
+
+def _mean_flat(grads, axis):
+    if not grads:
+        return
+    flat = all_reduce_mean(torch.cat([g.reshape(-1) for g in grads]), axis)
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -106,9 +125,11 @@ def mean_gradients(params):
 
 def mean_metrics(metrics: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
-    """The step's metrics (device scalars) averaged over the ranks."""
+    """The step's metrics (device scalars) averaged over the ranks (of
+    the data axis)."""
     keys = sorted(metrics)
     dtype = metrics["loss"].dtype
     flat = all_reduce_mean(torch.stack([metrics[k].reshape(()).to(dtype)
-                                        for k in keys]))
+                                        for k in keys]),
+                           None if model_size() == 1 else "data")
     return {k: flat[i] for i, k in enumerate(keys)}

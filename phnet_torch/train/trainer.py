@@ -21,6 +21,21 @@ the metrics. Rank 0 alone prints, writes the log and writes the
 checkpoints, as the JAX trainer does; a barrier follows each save, and
 every rank resumes from the same files. At each epoch's end the ranks
 check that they hold the same bits.
+
+``mesh`` (:func:`phnet_torch.parallel.make_mesh`, as the JAX trainer's
+``train(mesh=)``) lays the group's ranks out over its ``(data, model)``
+axes (one rank a device of the mesh; each computes on ``device``): the
+model is built whole, restored or broadcast from rank 0, then its large
+kernels are tensor-sharded over ``model`` as the JAX package's
+``shard_params`` places them (:func:`phnet_torch.parallel.tensor.
+shard_module`, at :data:`phnet_torch.parallel.mesh.TP_MIN_SIZE`); the
+BatchNorm statistics, the dropout masks and the caller's loader
+(``ClipLoader(num_shards=data_size(), shard_index=data_index())``) follow
+the data axis (make the loader after :func:`phnet_torch.parallel.
+multihost.init_axes`; each epoch's first batch is checked to be the same
+on the ranks of a model group). The bit check holds whole tensors over
+the world and sharded ones over each data group. ``mesh=None`` is data-parallel
+training over the whole group.
 """
 
 from __future__ import annotations
@@ -37,7 +52,9 @@ from ..config import Config
 from ..device import resolve_device
 from ..losses.criterion import LaneCriterion
 from ..models.phnet import check_trainable
-from ..parallel.multihost import broadcast_module, check_same_bits, rank
+from ..parallel.multihost import (broadcast_module, check_same_bits,
+                                  init_axes, rank, same_over)
+from ..parallel.tensor import cut_optimizer_state, shard_module
 from .checkpoint import CheckpointManager
 from .state import TrainState, create_train_state
 from .step import make_train_step, step_seed
@@ -88,15 +105,18 @@ def train(cfg: Config, dataset, loader, workdir: str,
           epochs: Optional[int] = None, resume: bool = False,
           initial: Optional[str] = None, log_every: int = 10,
           verbose: bool = True, device=None,
-          timings: Optional[List[Tuple[float, float]]] = None
-          ) -> Tuple[TrainState, List[float]]:
+          timings: Optional[List[Tuple[float, float]]] = None,
+          mesh=None) -> Tuple[TrainState, List[float]]:
     """Train ``cfg`` on ``loader``'s batches of ``dataset`` into
     ``workdir``. Returns the final state and each epoch's mean loss. A
     configuration that does not train (a quantized one) raises
     ValueError before anything is built. ``timings``, where given, gets a
     step's (seconds waiting for the batch, seconds from the end of the
-    last step to the loss on the host) each step."""
+    last step to the loss on the host) each step. ``mesh``: the ranks'
+    ``(data, model)`` layout (see the module's docstring)."""
     check_trainable(cfg.model)
+    if mesh is not None:
+        init_axes(mesh)
     tcfg = cfg.train
     epochs = epochs or tcfg.epochs
     dev = resolve_device(device)
@@ -111,6 +131,9 @@ def train(cfg: Config, dataset, loader, workdir: str,
     elif initial:
         state = ckpt.restore_weights(state, initial)
     broadcast_module(state.model)
+    if mesh is not None:
+        shard_module(state.model, mesh)
+        cut_optimizer_state(state.optimizer.opt)  # moments restored whole
     check_same_bits(state.model)
     step_fn = make_train_step(criterion, tcfg.accum_steps)
     lead = rank() == 0
@@ -127,6 +150,13 @@ def train(cfg: Config, dataset, loader, workdir: str,
                 data_s = time.time() - t_end
                 frames = _on_device(batch["frames"], dev)
                 labels = _on_device(batch["labels"], dev)
+                if mesh is not None and it == 0 and not same_over(
+                        [frames, labels], "model"):
+                    raise RuntimeError(
+                        "the ranks of a model group loaded different "
+                        "batches: shard the loader over the data axis "
+                        "(init_axes(mesh) before data_size(), "
+                        "data_index())")
                 state, metrics = step_fn(state, frames, labels,
                                          step_seed(tcfg.seed, state.step))
                 loss = float(metrics["loss"])

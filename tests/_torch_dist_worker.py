@@ -21,7 +21,14 @@ each rank writing its results to ``<out>.<rank>.pt``. Cases:
   in one process on the global batch (:func:`global_batch`);
 * ``cli``: ``python -m phnet_torch.train --synthetic --devices 2 --device
   cpu`` on the small configuration (the command line starts its own
-  ranks; no group here).
+  ranks; no group here);
+* ``tp_layers``: the model axis's sharded Linear, Conv1d and Conv2d
+  (``phnet_torch.parallel.tensor``), split on the output and on the first
+  dimension, forward and backward on problems drawn from a seed
+  (:func:`tp_layers_case`);
+* ``tp_train``: the trainer on a ``(data, model)`` mesh of the group's
+  ranks, at the JAX dry run's ``min_size`` (:func:`tp_train_case`): each
+  step recorded with whole tensors (the sharded ones gathered).
 """
 
 from __future__ import annotations
@@ -191,13 +198,31 @@ def copy_opt(sd):
     return _copy.deepcopy(sd)
 
 
+def same_bits(a, b) -> bool:
+    """Nested payloads (dicts, lists, tensors, numbers) equal bit for
+    bit."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_bits(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same_bits(x, y) for x, y in zip(a, b)))
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(
+                    a.reshape(-1).view(torch.uint8),
+                    b.reshape(-1).view(torch.uint8)))
+    return a == b
+
+
 def restored(rec):
     """A one-process training state holding the state before ``rec`` (a
     step record of :func:`train_case`), its optimizer at the record's
     rate."""
     from phnet_torch.train.state import create_train_state
 
-    state = create_train_state(small_cfg(rec["accum"]), 1, "cpu")
+    state = create_train_state(small_cfg(rec["accum"],
+                                         rec.get("dropout", 0.1)), 1, "cpu")
     state.model.load_state_dict(rec["before"])
     state.optimizer.load_state_dict(copy_opt(rec["opt"]))
     state.optimizer.schedule = lambda _: rec["lr"]
@@ -213,7 +238,7 @@ def forced_step(rec, frames, labels):
     from phnet_torch.losses.criterion import LaneCriterion
     from phnet_torch.train.step import make_train_step
 
-    cfg = small_cfg(rec["accum"])
+    cfg = small_cfg(rec["accum"], rec.get("dropout", 0.1))
     state = restored(rec)
     step = make_train_step(LaneCriterion(cfg.model, cfg.train.loss),
                            rec["accum"])
@@ -261,7 +286,176 @@ def cli_case(out: dict, workdir: str):
     out["history"] = history
 
 
-CASES = {"bn": bn_case, "train": train_case, "cli": cli_case}
+# -- the model axis ------------------------------------------------------------
+
+TP_MIN_SIZE = 1024  # the JAX dry run's ``shard_params(..., min_size=1024)``
+
+# name: (module kind, constructor arguments, input shape); the flax kernel's
+# last dimension is odd where the rule falls back to its first
+TP_LAYERS = {
+    "linear_out": ("linear", (6, 8), (3, 4, 6)),
+    "linear_first": ("linear", (8, 5), (3, 4, 8)),
+    "conv2d_out": ("conv2d", dict(in_channels=3, out_channels=4,
+                                  kernel_size=3, padding=1), (2, 3, 7, 6)),
+    "conv2d_first": ("conv2d", dict(in_channels=3, out_channels=5,
+                                    kernel_size=(4, 3), stride=(2, 1),
+                                    padding=(2, 1)), (2, 3, 9, 6)),
+    "conv2d_depthwise_out": ("conv2d", dict(in_channels=4, out_channels=4,
+                                            kernel_size=3, padding=1,
+                                            groups=4), (2, 4, 5, 5)),
+    "conv1d_out": ("conv1d", dict(in_channels=3, out_channels=6,
+                                  kernel_size=3, padding=1), (2, 3, 9)),
+    "conv1d_first": ("conv1d", dict(in_channels=3, out_channels=3,
+                                    kernel_size=4, padding=2,
+                                    dilation=2), (2, 3, 11)),
+}
+
+
+def tp_layer(name: str, seed: int = 0):
+    """The whole layer ``name`` of :data:`TP_LAYERS` with weights drawn
+    from ``seed``, its input and an output cotangent (float32)."""
+    kind, args, xshape = TP_LAYERS[name]
+    torch.manual_seed(seed)
+    layer = (torch.nn.Linear(*args) if kind == "linear" else
+             torch.nn.Conv2d(**args) if kind == "conv2d" else
+             torch.nn.Conv1d(**args))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.from_numpy(rng.normal(size=p.shape).astype(
+                np.float32)))
+    x = torch.from_numpy(rng.normal(size=xshape).astype(np.float32))
+    with torch.no_grad():
+        shape = layer(x).shape
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    return layer, x, g
+
+
+def tp_layers_case(out: dict):
+    """Every layer of :data:`TP_LAYERS` sharded by ``shard_module`` (the
+    JAX rule at ``min_size`` 1) over a mesh of the group's ranks all on
+    ``model``: each layer's placement, output, input gradient and whole
+    parameter gradients; a bf16 input through the first layer."""
+    from phnet_torch.parallel import init_axes, make_mesh, shard_module
+    from phnet_torch.parallel.multihost import world_size
+    from phnet_torch.parallel.tensor import gather_like, placement
+
+    mesh = make_mesh(devices=["cpu"] * world_size(),
+                     model_parallel=world_size())
+    init_axes(mesh)
+    for name in TP_LAYERS:
+        layer, x, g = tp_layer(name)
+        box = torch.nn.ModuleDict({"layer": layer})
+        out[f"{name}/held"] = shard_module(box, mesh, min_size=1)
+        x.requires_grad_(True)
+        y = layer(x)
+        y.backward(g)
+        out[f"{name}/placement"] = placement(layer.weight)
+        out[f"{name}/y"] = y.detach()
+        out[f"{name}/dx"] = x.grad
+        for leaf in ("weight", "bias"):
+            p = getattr(layer, leaf)
+            out[f"{name}/d{leaf}"] = gather_like(p.grad, placement(p))
+    layer, x, _ = tp_layer("linear_out")
+    shard_module(torch.nn.ModuleDict({"layer": layer}), mesh, min_size=1)
+    out["bf16"] = layer(x.bfloat16()).detach()
+
+
+def tp_loader(cfg, epoch: int, clips: int = 2):
+    """The synthetic dataset of :func:`tp_train_case`'s epoch ``epoch``
+    (one step of ``clips`` clips of 2 frames) and this rank's loader, a
+    shard a data row."""
+    from phnet_torch.data import ClipLoader, SyntheticVideoDataset
+    from phnet_torch.parallel.multihost import data_index, data_size
+
+    m, t = cfg.model, cfg.train
+    ds = SyntheticVideoDataset(
+        n_videos=clips, frames_per_video=2, img_h=m.img_h, img_w=m.img_w,
+        spec=m.lane, max_lanes=m.max_lanes, skip_increment=t.skip_increment,
+        max_training_skip=t.max_training_skip, seed=epoch)
+    return ds, ClipLoader(ds, batch_size=clips // data_size(), seed=t.seed,
+                          num_shards=data_size(), shard_index=data_index(),
+                          prefetch=0)
+
+
+def tp_train_case(out: dict, workdir: str, model_parallel: str,
+                  dropout: str, first: str, last: str):
+    """The small VIL model through the trainer on a ``(world / m, m)``
+    mesh of the group's ranks (``m = model_parallel``; no mesh with one
+    process), decoder dropout ``dropout``, with ``TP_MIN_SIZE`` set to
+    :data:`TP_MIN_SIZE`: epochs ``first`` to ``last`` of one step each,
+    the first from ``workdir/init.pt``'s weights where it is epoch 1 and
+    the file exists, every later one resumed from the checkpoint before
+    it. Each step's record (``out["steps"]``) holds whole tensors, as
+    :func:`train_case`'s; ``out["local{epoch}"]`` the rank's own
+    parameters and buffers after each epoch (sharded ones as blocks),
+    ``out["placements"]`` the sharded parameters' placements and
+    ``out["held"]`` what the port holds whole that the rule splits."""
+    from phnet_torch.parallel import mesh as pmesh
+    from phnet_torch.parallel import init_axes, make_mesh, shard_params
+    from phnet_torch.parallel.multihost import world_size
+    from phnet_torch.parallel.tensor import (full_state_dict, gather_like,
+                                             placement)
+    from phnet_torch.train import trainer
+
+    pmesh.TP_MIN_SIZE = TP_MIN_SIZE
+    whole = lambda model: {k: v.clone() for k, v in  # noqa: E731
+                           full_state_dict(model).items()}
+    mesh = None if world_size() == 1 else make_mesh(
+        devices=["cpu"] * world_size(), model_parallel=int(model_parallel))
+    if mesh is not None:
+        init_axes(mesh)  # before the loaders shard over the data axis
+    steps = []
+    make_step = trainer.make_train_step
+
+    def recording(criterion, accum):
+        step = make_step(criterion, accum)
+
+        def run(state, frames, labels, seed):
+            model = state.model
+            rec = dict(before=whole(model),
+                       opt=copy_opt(state.optimizer.state_dict()),
+                       step=state.step, frames=frames.clone(),
+                       labels=labels.clone(), seed=seed, accum=accum,
+                       dropout=float(dropout), lr=state.optimizer.lr())
+            state, metrics = step(state, frames, labels, seed)
+            rec.update(loss=metrics["loss"].item(),
+                       grad_norm=metrics["grad_norm"].item(),
+                       grads={n: gather_like(p.grad, placement(p)).clone()
+                              for n, p in model.named_parameters()},
+                       after=whole(model))
+            steps.append(rec)
+            return state, metrics
+
+        return run
+
+    trainer.make_train_step = recording
+    try:
+        for epoch in range(int(first), int(last) + 1):
+            cfg = small_cfg(1, float(dropout))
+            ds, loader = tp_loader(cfg, epoch)
+            initial = ("init" if epoch == 1 and os.path.exists(
+                os.path.join(workdir, "init.pt")) else None)
+            state, history = trainer.train(
+                cfg, ds, loader, workdir, epochs=epoch, resume=epoch > 1,
+                initial=initial, device="cpu", verbose=False, mesh=mesh)
+            out[f"history{epoch}"] = history
+            out[f"local{epoch}"] = {k: v.detach().clone() for k, v in
+                                    state.model.state_dict().items()}
+    finally:
+        trainer.make_train_step = make_step
+    out["steps"] = steps
+    out["placements"] = {n: placement(p)
+                         for n, p in state.model.named_parameters()
+                         if placement(p) is not None}
+    if mesh is not None:
+        decided = shard_params(state.model, mesh)
+        out["held"] = sorted(n for n, d in decided.items()
+                             if d is not None and n not in out["placements"])
+
+
+CASES = {"bn": bn_case, "train": train_case, "cli": cli_case,
+         "tp_layers": tp_layers_case, "tp_train": tp_train_case}
 
 
 def one_process(case: str, *args) -> dict:

@@ -72,7 +72,8 @@ def test_port_sources_exist():
             "phnet_torch/run/evaluate.py",
             "phnet_torch/parallel/__init__.py",
             "phnet_torch/parallel/mesh.py",
-            "phnet_torch/parallel/multihost.py"} <= names
+            "phnet_torch/parallel/multihost.py",
+            "phnet_torch/parallel/tensor.py"} <= names
     assert (REPO / "phnet_torch" / "csrc" / "w8_matmul.cu").is_file()
     for src in ("data/native/clip_loader.cpp",
                 "data/native/nvjpeg_decode.cpp",

@@ -1,7 +1,7 @@
 """``phnet_torch.parallel``: the mesh against the JAX package's
-``make_mesh``, and the process group's helpers and train-mode BatchNorm
-over two gloo ranks on the CPU (``tests/_torch_dist_worker.py``, case
-``bn``).
+``make_mesh`` (its model axis too), and the process group's helpers and
+train-mode BatchNorm over two gloo ranks on the CPU
+(``tests/_torch_dist_worker.py``, case ``bn``).
 
 BatchNorm under a group of two ranks takes the statistics of the global
 batch (``SyncBatchNorm``'s semantics, GSPMD's one step over the global
@@ -40,10 +40,22 @@ def test_mesh_layout_matches_jax(n_devices):
         f"cpu:{d.id}" for d in ref.devices[:, 0]]
 
 
-def test_model_axis_is_not_ported():
-    assert jax_make_mesh(8, model_parallel=2).shape["model"] == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3.3"):
-        make_mesh(8, model_parallel=2, devices=["cpu"] * 8)
+@pytest.mark.parametrize("model_parallel", [2, 4])
+def test_model_axis_is_not_ported(model_parallel):
+    """The model axis, once refused, is ported: ``make_mesh(8,
+    model_parallel=m)`` lays the devices out as JAX's, ``reshape(8 // m,
+    m)``, data down the first column."""
+    ref = jax_make_mesh(8, model_parallel=model_parallel)
+    got = make_mesh(8, model_parallel=model_parallel,
+                    devices=[f"cpu:{i}" for i in range(8)])
+    assert got.shape == dict(ref.shape) == {"data": 8 // model_parallel,
+                                            "model": model_parallel}
+    assert [[str(d) for d in row] for row in got.devices] == [
+        [f"cpu:{d.id}" for d in row] for row in ref.devices]
+    assert [str(d) for d in got.data_devices()] == [
+        f"cpu:{d.id}" for d in ref.devices[:, 0]]
+    with pytest.raises(ValueError, match="do not split"):
+        make_mesh(6, model_parallel=4, devices=["cpu"] * 6)
 
 
 def test_one_process_helpers_without_a_group():

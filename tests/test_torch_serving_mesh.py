@@ -10,7 +10,11 @@ Per tick: the valid slots and the memory mask equal, the kept rows within
 server's, the decoded lanes equal in count. The router chain's mode
 follows the global ``max_streams``; the w8 model splits too (held to the
 one-device w8 server at ``test_w8_server_matches_jax``'s 1e-2); what a
-mesh cannot take raises.
+mesh cannot take raises. A mesh with a ``model`` axis
+(``make_mesh(devices=["cpu"] * 4, model_parallel=2)``) replicates the
+weights over each data row, as the JAX server's does: its ticks equal the
+data-only mesh's bit for bit and match the JAX server on
+``make_mesh(4, model_parallel=2)``.
 """
 
 import dataclasses
@@ -25,6 +29,7 @@ from phnet_torch.convert import convert
 from phnet_torch.models.phnet import PHNet
 from phnet_torch.parallel import make_mesh
 from phnet_torch.serving import StreamingServer as TorchServer
+from phnet_tpu.parallel import make_mesh as jax_make_mesh
 from phnet_tpu.serving import StreamingServer as JaxServer
 
 import torch_parity as tp
@@ -37,10 +42,11 @@ SCHEDULE = [{0: 10, 1: 20, 2: 30, 3: 40}, {0: 11, 2: 31, 3: 41},
             {0: 16, 1: 26, 2: 36, 3: 53}]
 
 
-def mesh_server(cfg, variables, **kw):
+def mesh_server(cfg, variables, model_parallel=1, **kw):
     return TorchServer(cfg, convert(variables), max_streams=STREAMS,
                        memory_window=WINDOW, mesh=make_mesh(
-                           devices=["cpu", "cpu"]), **kw)
+                           devices=["cpu"] * (2 * model_parallel),
+                           model_parallel=model_parallel), **kw)
 
 
 def drive(servers, swap, n_ticks_want=7):
@@ -121,6 +127,42 @@ def test_split_server_matches_one_device_and_jax(weights):
                                atol=1e-4)
     st = split.stats()
     assert st["ticks"] == 7 and st["frames_per_stream"] == [6, 6, 5, 4]
+
+
+def test_model_axis_server_is_the_data_only_server(weights):
+    """Two data rows of two devices each: one replica a row, bit-equal to
+    the data-only mesh's two replicas, and within the split server's
+    bounds of the JAX server on a (2, 2) mesh on the tick's streams (a
+    skipped stream's kept and valid rows come from its stale frame buffer,
+    which
+    the JAX package's mesh path fills otherwise than its one-device path:
+    its own two servers differ there)."""
+    variables, swap = weights
+    js = JaxServer(jcfg.Config(model=tp.jax_cfg()), tp.jax_tree(variables),
+                   max_streams=STREAMS, memory_window=WINDOW,
+                   mesh=jax_make_mesh(4, model_parallel=2))
+    cfg = tcfg.Config(model=tp.torch_cfg())
+    data = mesh_server(cfg, variables)
+    model = mesh_server(cfg, variables, model_parallel=2)
+    assert model.mesh.shape == {"data": 2, "model": 2}
+    assert len(model.replicas) == 2
+    ticks = [t for t in SCHEDULE if isinstance(t, dict)]
+    for tick, ((jk, jv, jl, jm), (dk, dv, dl, dm), (mk, mv, ml, mm)) in zip(
+            ticks, drive([js, data, model], swap)):
+        for a, b in ((mk, dk), (mv, dv), (mm, dm)):
+            assert np.array_equal(a, b)
+        assert {s: len(v) for s, v in ml.items()} == {
+            s: len(v) for s, v in dl.items()}
+        sids = sorted(tick)
+        np.testing.assert_array_equal(mv[sids], jv[sids])
+        np.testing.assert_allclose(mk[sids], jk[sids], rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(mm, jm)
+        assert {s: len(v) for s, v in ml.items()} == {
+            s: len(v) for s, v in jl.items()}
+    assert torch.equal(model.memory.values, data.memory.values)
+    np.testing.assert_allclose(tp.to_np(model.memory.values),
+                               tp.to_np(js.memory.values), rtol=0, atol=1e-4)
+    assert model.memory.t == int(js.memory.t) == 7
 
 
 def test_w8_split_server_matches_one_device(weights):
