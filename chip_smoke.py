@@ -203,7 +203,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the same steps in one process: losses, gradient norms, checkpointed
     parameters and BatchNorm statistics within stated bounds, the ranks'
     bits equal, both runs' checkpoints restored at model 1, K2 12 times a
-    step in each rank.
+    step in each rank;
+44. the deployment artifact: full-width VIL with 4 streams exported on
+    the card in float32 (``export_serving_step``) and in w8 (the command
+    line from a port checkpoint), loaded by ``DeployedServer`` and ticked
+    8 frames beside a live server with cuDNN's TF32 flag on: keep sets
+    and memory masks equal, kept rows and memory within 1e-5 of max
+    |live|, K1 once, K2 three times and (w8) K3 12 times a tick launched
+    inside the loaded program, whose graph holds the ``phnet::``
+    operators; export, save and load seconds, the artifact's MiB and both
+    tick walls.
+
+The phases run in another order than their numbers, and the CPU's side
+of every card-against-CPU check (phases 6, 9, 13-15, 20-22, 27-29, 37
+and 39) runs in one background process, on as many threads as the
+script's own, while the card runs (:class:`CpuReferences`): the phases
+that need no CPU run first, then 21-22, 29 and 39-40, whose CPU steps
+are the longest, then the command lines' subprocesses (30-36, 41, 43).
+Each check holds the background process's weights or clip to the
+card's by a digest of their bytes.
 
 The card machine has one card: more than one card's ranks are held on
 the CPU only (``tests/test_torch_dist_train.py``,
@@ -225,7 +243,8 @@ and K2's launches on the other backbones' paths under ``revcol_*``,
 ``resnet50_*`` and ``groupnorm_*``, K2's in phase 41's NCCL steps
 under ``distributed_training_launches``, K1's and K2's in phase 42's
 split server under ``mesh_serving_launches``, K2's in phase 43's ranks
-under ``model_axis_training_launches``; K2's
+under ``model_axis_training_launches``, each kernel's through phase 44's
+artifacts under ``export_launches``; K2's
 bf16 mode and K3 at bf16 x as entries of their own); the last line is
 ``{"ok": true, "device": {...}}``.
 Without a card, or without the package beside it, the script exits
@@ -236,12 +255,16 @@ import contextlib
 import dataclasses
 import gc
 import glob
+import hashlib
 import json
 import os
+import queue
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 
@@ -447,6 +470,127 @@ def chain_ops(n, c, p, blocks):
     conv = 2 * taps + c * p
     per_plane = 7 * c * p + blocks * (2 * conv + 2 * 7 * c * p + 3 * c * p)
     return n * per_plane
+
+
+def fingerprint(torch, tensors):
+    """A digest of the bytes of ``tensors`` (a name -> tensor mapping), by
+    which a phase checks that the background process's CPU side ran on
+    the weights or clip that the card ran on."""
+    h = hashlib.sha256()
+    for name, t in tensors.items():
+        t = t.detach().cpu().reshape(-1).contiguous()
+        h.update(f"{name} {t.dtype} {t.numel()}".encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def cpu_job(torch, key, **inline):
+    """The CPU side of the card-against-CPU check ``key``:
+    ``("end_to_end", ...)`` (:func:`cpu_end_to_end`), ``("train", ...)``
+    (:func:`cpu_train`) or ``("train_bf16", ...)``
+    (:func:`cpu_train_bf16`)."""
+    return {"end_to_end": cpu_end_to_end, "train": cpu_train,
+            "train_bf16": cpu_train_bf16}[key[0]](torch, *key[1:], **inline)
+
+
+def cpu_worker(keys, out_dir, results, threads):
+    """The background process: each of ``keys`` in turn through
+    :func:`cpu_job` on ``threads`` CPU threads, each result saved under
+    ``out_dir`` and announced on ``results`` as (key, path, error text,
+    seconds). Stops at the first error. Prints go to stderr: the script's
+    stdout ends in its own lines."""
+    import torch
+
+    sys.stdout = sys.stderr
+    torch.set_num_threads(threads)
+    for i, key in enumerate(keys):
+        t0 = time.perf_counter()
+        try:
+            path = os.path.join(out_dir, f"{i}.pt")
+            torch.save(cpu_job(torch, key), path)
+            results.put((key, path, None, time.perf_counter() - t0))
+        except BaseException:
+            results.put((key, None, traceback.format_exc(),
+                         time.perf_counter() - t0))
+            return
+
+
+class CpuReferences:
+    """The CPU sides of the card-against-CPU checks, computed in one
+    background process (spawned, so it never touches the card) in the
+    order of ``keys``, which is the order the phases ask for them, while
+    the card runs the phases before. The process takes as many CPU
+    threads as this one has (``torch.get_num_threads()``): a CPU step's
+    bits depend on how its sums are split over threads, and a check's
+    Hungarian matches on them."""
+
+    def __init__(self, torch, keys):
+        import multiprocessing
+
+        self.keys = list(keys)
+        if len(set(self.keys)) != len(self.keys):
+            raise AssertionError("CPU references: a key listed twice")
+        self.threads = torch.get_num_threads()
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
+        ctx = multiprocessing.get_context("spawn")
+        self.results = ctx.Queue()
+        self.proc = ctx.Process(target=cpu_worker, daemon=True, args=(
+            self.keys, self.dir, self.results, self.threads))
+        self.proc.start()
+        self.ready, self.taken = {}, set()
+        self.seconds, self.waited = 0.0, 0.0
+
+    def get(self, torch, key):
+        """The result of ``key``, waiting for the process if it is not
+        there yet; each key is asked for once."""
+        if key not in self.keys or key in self.taken:
+            raise AssertionError(f"CPU references: {key} not listed, or "
+                                 f"asked for twice")
+        t0 = time.perf_counter()
+        while key not in self.ready:
+            try:
+                got, path, error, sec = self.results.get(timeout=10)
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    raise AssertionError(
+                        f"CPU references: the background process ended "
+                        f"(exit {self.proc.exitcode}) before {key}")
+                continue
+            if error is not None:
+                raise AssertionError(f"CPU references: {got} failed in "
+                                     f"the background process:\n{error}")
+            self.ready[got] = path
+            self.seconds += sec
+        self.waited += time.perf_counter() - t0
+        self.taken.add(key)
+        path = self.ready.pop(key)
+        out = torch.load(path, weights_only=False)
+        os.remove(path)
+        return out
+
+    def close(self):
+        """Stop the process and remove its files."""
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join(30)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        self.results.close()
+        self.results.cancel_join_thread()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+CPU_REFS = None  # main's CpuReferences while it runs the phases
+
+
+def cpu_side(torch, key, **inline):
+    """The CPU side of the check ``key``: from :data:`CPU_REFS`'s
+    background process where main started one, else computed here (with
+    ``inline``'s arguments)."""
+    if CPU_REFS is not None:
+        return CPU_REFS.get(torch, key)
+    return cpu_job(torch, key, **inline)
 
 
 def phase_device(torch):
@@ -1132,6 +1276,74 @@ def phase_serving(torch, card, state_dict, quantize="none", ticks=16,
             "w8_matmul": k3, **numbers}
 
 
+def end_to_end_inputs(preset, quantize, compute_dtype, chain_bf16, frames,
+                      backbone):
+    """:func:`phase_end_to_end`'s model config and its clips by run:
+    ``cuda`` and ``cpu`` the seeded frames, ``cpu perturbed`` (bf16 and
+    quantized runs) a copy moved by one bf16 ulp (bf16) or 1e-6
+    (quantized)."""
+    mcfg = preset_config(preset, quantize, compute_dtype, backbone).model
+    if chain_bf16 is not None:
+        mcfg = dataclasses.replace(mcfg, head=dataclasses.replace(
+            mcfg.head, router_chain_bf16=chain_bf16))
+    clip = np.random.default_rng(4).normal(
+        size=(1, frames, mcfg.img_h, mcfg.img_w, 3)).astype(np.float32)
+    runs = {"cuda": clip, "cpu": clip}
+    if compute_dtype == "bfloat16" or chain_bf16:
+        runs["cpu perturbed"] = (clip * (1.0 + 2.0 ** -8 * np.random.default_rng(
+            6).integers(-1, 2, clip.shape))).astype(np.float32)
+    elif quantize != "none":
+        runs["cpu perturbed"] = (clip * (1.0 + 1e-6 * np.random.default_rng(
+            6).normal(size=clip.shape))).astype(np.float32)
+    return mcfg, runs
+
+
+def clip_run(torch, mcfg, state_dict, clip, dev):
+    """``clip`` [1, T, H, W, 3] through ``frame_step`` on ``dev`` with
+    ``state_dict``: the stacked routed predictions, keep indices and keep
+    counts on the CPU, and the carry's valid slots entering each frame
+    (prior propagation; else empty)."""
+    from phnet_torch.models import PHNet
+    from phnet_torch.models.phnet import init_memory
+
+    model = PHNet(mcfg, device=dev)
+    model.load_state_dict(state_dict)
+    routed, keeps, counts, carried = [], [], [], []
+    with torch.no_grad():
+        feats = model.encode(torch.from_numpy(clip).to(dev))
+        mem = init_memory(mcfg, 1, 2, dev)
+        dyn = model.head.combine_dynamic()
+        for t in range(clip.shape[1]):
+            if mcfg.head.propagate_priors:
+                carried.append(int(mem.mask.sum()))
+            out, mem, r = model.frame_step(tuple(f[t] for f in feats), mem,
+                                           dyn)
+            routed.append(r.cpu())
+            keeps.append(out.keep_idx.cpu())
+            counts.append(out.num_kept.cpu())
+    return (torch.stack(routed), torch.stack(keeps),
+            torch.stack(counts)), carried
+
+
+def cpu_end_to_end(torch, preset, quantize, compute_dtype, chain_bf16,
+                   frames, backbone, state_dict=None):
+    """The CPU runs of :func:`phase_end_to_end` with ``state_dict``, by
+    default the seeded weights of ``preset`` and ``backbone`` (what the
+    script's phases pass), and those weights' fingerprint."""
+    mcfg, runs = end_to_end_inputs(preset, quantize, compute_dtype,
+                                   chain_bf16, frames, backbone)
+    if state_dict is None:
+        state_dict = seeded_state_dict(torch, preset_config(
+            preset, backbone=backbone))
+    results, carried = {}, {}
+    for run, clip in runs.items():
+        if run != "cuda":
+            results[run], carried[run] = clip_run(torch, mcfg, state_dict,
+                                                  clip, "cpu")
+    return {"weights": fingerprint(torch, state_dict), "results": results,
+            "carried": carried}
+
+
 def phase_end_to_end(torch, card, state_dict, quantize="none",
                      preset="vil100_config", compute_dtype="float32",
                      chain_bf16=None, frames=2, backbone=None):
@@ -1165,13 +1377,9 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
     lengths and xs (columns 2:) within 1e-3 at the 99th percentile and
     1e-1 at most; the cls logits within 1e-1 at the 99th percentile and 1
     at most."""
-    from phnet_torch.models import PHNet
-    from phnet_torch.models.phnet import init_memory
-
-    mcfg = preset_config(preset, quantize, compute_dtype, backbone).model
-    if chain_bf16 is not None:
-        mcfg = dataclasses.replace(mcfg, head=dataclasses.replace(
-            mcfg.head, router_chain_bf16=chain_bf16))
+    key = ("end_to_end", preset, quantize, compute_dtype, chain_bf16,
+           frames, backbone)
+    mcfg, runs = end_to_end_inputs(*key[1:])
     bf16 = compute_dtype == "bfloat16" or bool(chain_bf16)
     tag = "end-to-end" if preset == "vil100_config" else (
         f"end-to-end {preset.replace('_config', '')}")
@@ -1180,36 +1388,15 @@ def phase_end_to_end(torch, card, state_dict, quantize="none",
         "bf16" if compute_dtype == "bfloat16" else "",
         "bf16 chain" if chain_bf16 else "") if t])
     n_frames = frames
-    frames = np.random.default_rng(4).normal(
-        size=(1, n_frames, mcfg.img_h, mcfg.img_w, 3)).astype(np.float32)
-    runs = {"cuda": frames, "cpu": frames}
-    if bf16:
-        runs["cpu perturbed"] = (frames * (1.0 + 2.0 ** -8 * np.random.default_rng(
-            6).integers(-1, 2, frames.shape))).astype(np.float32)
-    elif quantize != "none":
-        runs["cpu perturbed"] = (frames * (1.0 + 1e-6 * np.random.default_rng(
-            6).normal(size=frames.shape))).astype(np.float32)
     results, carried = {}, {}
-    for run, clip in runs.items():
-        dev = run.split()[0]
-        model = PHNet(mcfg, device=dev)
-        model.load_state_dict(state_dict)
-        with torch.no_grad():
-            feats = model.encode(torch.from_numpy(clip).to(dev))
-            mem = init_memory(mcfg, 1, 2, dev)
-            dyn = model.head.combine_dynamic()
-            routed, keeps, counts = [], [], []
-            carried[run] = []  # the carry's valid slots entering a frame
-            for t in range(n_frames):
-                if mcfg.head.propagate_priors:
-                    carried[run].append(int(mem.mask.sum()))
-                out, mem, r = model.frame_step(tuple(f[t] for f in feats),
-                                               mem, dyn)
-                routed.append(r.cpu())
-                keeps.append(out.keep_idx.cpu())
-                counts.append(out.num_kept.cpu())
-        results[run] = (torch.stack(routed), torch.stack(keeps),
-                        torch.stack(counts))
+    results["cuda"], carried["cuda"] = clip_run(torch, mcfg, state_dict,
+                                                runs["cuda"], "cuda")
+    cpu = cpu_side(torch, key, state_dict=state_dict)
+    if cpu["weights"] != fingerprint(torch, state_dict):
+        raise AssertionError(f"{tag}: the CPU side's seeded weights are not "
+                             f"the card's")
+    results.update(cpu["results"])
+    carried.update(cpu["carried"])
     (r_gpu, k_gpu, n_gpu), (r_cpu, k_cpu, n_cpu) = results["cuda"], results[
         "cpu"]
     if mcfg.head.propagate_priors:
@@ -1544,6 +1731,32 @@ def free_matches(torch, cfg, frames, labels, device):
     return torch.stack([outs.matched_fir, outs.matched_sec]).cpu()
 
 
+def train_parity_inputs(torch, preset, frames_per_clip, backbone):
+    """:func:`phase_train_parity`'s config, gradient leaves, seeded clip
+    (frames, labels) and the frames moved by 1e-6 relative."""
+    cfg = train_config(0.0, preset, backbone=backbone)
+    leaves = HEAD_LEAVES.get(preset, TRAIN_LEAVES)
+    if backbone is not None:
+        leaves = BACKBONE_LEAVES[backbone] + TRAIN_LEAVES[2:]
+    frames, labels = synthetic_batch(torch, cfg, 1, frames_per_clip)
+    pert = frames * (1.0 + 1e-6 * torch.from_numpy(np.random.default_rng(
+        7).normal(size=tuple(frames.shape)).astype(np.float32)))
+    return cfg, leaves, frames, labels, pert
+
+
+def cpu_train(torch, preset, frames_per_clip, backbone):
+    """The CPU steps of :func:`phase_train_parity`: on the clip and on its
+    perturbed copy, with the clip's fingerprint."""
+    cfg, leaves, frames, labels, pert = train_parity_inputs(
+        torch, preset, frames_per_clip, backbone)
+    return {"inputs": fingerprint(torch, {"frames": frames,
+                                          "labels": labels}),
+            "cpu": grad_run(torch, cfg, frames, labels, "cpu",
+                            leaves=leaves),
+            "cpu_p": grad_run(torch, cfg, pert, labels, "cpu",
+                              leaves=leaves)}
+
+
 def phase_train_parity(torch, card, preset="vil100_config",
                        frames_per_clip=4, backbone=None):
     """One float32 training step of ``preset`` card against CPU at full
@@ -1556,17 +1769,16 @@ def phase_train_parity(torch, card, preset="vil100_config",
     the remat recompute, its bf16 mode never. Returns the card's K2
     launches. ``backbone``: another backbone (:func:`with_backbone`),
     without drop path (no seed reaches the step)."""
-    cfg = train_config(0.0, preset, backbone=backbone)
-    leaves = HEAD_LEAVES.get(preset, TRAIN_LEAVES)
-    if backbone is not None:
-        leaves = BACKBONE_LEAVES[backbone] + TRAIN_LEAVES[2:]
-    frames, labels = synthetic_batch(torch, cfg, 1, frames_per_clip)
-    pert = frames * (1.0 + 1e-6 * torch.from_numpy(np.random.default_rng(
-        7).normal(size=tuple(frames.shape)).astype(np.float32)))
+    key = ("train", preset, frames_per_clip, backbone)
+    cfg, leaves, frames, labels, _ = train_parity_inputs(torch, *key[1:])
     t0 = time.perf_counter()
     card_run = grad_run(torch, cfg, frames, labels, "cuda", leaves=leaves)
-    cpu = grad_run(torch, cfg, frames, labels, "cpu", leaves=leaves)
-    cpu_p = grad_run(torch, cfg, pert, labels, "cpu", leaves=leaves)
+    side = cpu_side(torch, key)
+    if side["inputs"] != fingerprint(torch, {"frames": frames,
+                                             "labels": labels}):
+        raise AssertionError(f"training {preset}: the CPU side's clip is "
+                             f"not the card's")
+    cpu, cpu_p = side["cpu"], side["cpu_p"]
     want_k2 = (2 * chain_per_frame(cfg) * frames_per_clip, 0)
     if card_run["k2"] != want_k2:
         raise AssertionError(f"training {preset}: K2 launches (float32, "
@@ -1649,6 +1861,34 @@ def zero_up_to_rounding(name, grads):
     return None
 
 
+def train_bf16_inputs(torch, preset, chain_f32, frames_per_clip,
+                      ulp_seeds):
+    """:func:`phase_train_parity_bf16`'s config, seeded clip (frames,
+    labels) and the frames' one-ulp copies."""
+    cfg = train_config(0.0, preset, compute_dtype="bfloat16",
+                       chain_f32=chain_f32)
+    frames, labels = synthetic_batch(torch, cfg, 1, frames_per_clip)
+    return cfg, frames, labels, [one_ulp(frames, s) for s in ulp_seeds]
+
+
+def cpu_train_bf16(torch, preset, chain_f32, frames_per_clip, ulp_seeds):
+    """The CPU side of :func:`phase_train_parity_bf16`: the step on the
+    clip, the steps on its one-ulp copies pinned to that step's matches,
+    the most slots the copies' free matches move, and the clip's
+    fingerprint."""
+    cfg, frames, labels, copies = train_bf16_inputs(
+        torch, preset, chain_f32, frames_per_clip, ulp_seeds)
+    cpu = grad_run(torch, cfg, frames, labels, "cpu")
+    pin = cpu["matched"]
+    return {"inputs": fingerprint(torch, {"frames": frames,
+                                          "labels": labels}),
+            "cpu": cpu,
+            "cpu_ulp": [grad_run(torch, cfg, f, labels, "cpu", pin=pin)
+                        for f in copies],
+            "own_flips": max(int((free_matches(torch, cfg, f, labels, "cpu")
+                                  != pin).sum()) for f in copies)}
+
+
 def phase_train_parity_bf16(torch, card, preset="vil100_config",
                             chain_f32=False, frames_per_clip=4,
                             ulp_seeds=(5, 6)):
@@ -1670,17 +1910,16 @@ def phase_train_parity_bf16(torch, card, preset="vil100_config",
     same bounds (the recompute reproduces the forward: K2 and cuBLAS
     deterministic). Returns the card's K2 launches."""
     tag = f"{preset}{' router_train_chain_f32' if chain_f32 else ''}"
-    cfg = train_config(0.0, preset, compute_dtype="bfloat16",
-                       chain_f32=chain_f32)
-    frames, labels = synthetic_batch(torch, cfg, 1, frames_per_clip)
-    copies = [one_ulp(frames, s) for s in ulp_seeds]
+    key = ("train_bf16", preset, chain_f32, frames_per_clip, ulp_seeds)
+    cfg, frames, labels, _ = train_bf16_inputs(torch, *key[1:])
     t0 = time.perf_counter()
-    cpu = grad_run(torch, cfg, frames, labels, "cpu")
+    side = cpu_side(torch, key)
+    if side["inputs"] != fingerprint(torch, {"frames": frames,
+                                             "labels": labels}):
+        raise AssertionError(f"training {tag} bf16: the CPU side's clip is "
+                             f"not the card's")
+    cpu, cpu_ulp, own_flips = side["cpu"], side["cpu_ulp"], side["own_flips"]
     pin = cpu["matched"]
-    cpu_ulp = [grad_run(torch, cfg, f, labels, "cpu", pin=pin)
-               for f in copies]
-    own_flips = max(int((free_matches(torch, cfg, f, labels, "cpu")
-                         != pin).sum()) for f in copies)
     flips = int((free_matches(torch, cfg, frames, labels, "cuda")
                  != pin).sum())
     card_run = grad_run(torch, cfg, frames, labels, "cuda", pin=pin)
@@ -2075,7 +2314,15 @@ def phase_train_heads(torch, card, frames_per_clip=2):
     each (its launches and kernel time from one step under the card-only
     profiler); the OL command line's ``main`` with ``--variant`` to the
     first resumable checkpoint and a resume. Neither head launches K2.
-    Returns the throughput numbers by preset."""
+    The steps against the CPU come last, so that the background process
+    (:class:`CpuReferences`) has their CPU sides ready. Returns the
+    throughput numbers by preset."""
+    out = {preset: phase_train_throughput(
+        torch, card, batches=(1,), timed=1, preset=preset,
+        compute_dtype="bfloat16")[1]
+        for preset in (MULTISCALE, PROPAGATE)}
+    for variant in ("multiscale", "propagate"):
+        phase_trainer_openlane(torch, card, frames_per_clip, variant)
     torch.backends.cudnn.allow_tf32 = True  # a user's default
     try:
         for preset in (MULTISCALE, PROPAGATE):
@@ -2083,12 +2330,6 @@ def phase_train_heads(torch, card, frames_per_clip=2):
             phase_train_parity_bf16(torch, card, preset)
     finally:
         torch.backends.cudnn.allow_tf32 = False
-    out = {preset: phase_train_throughput(
-        torch, card, batches=(1,), timed=1, preset=preset,
-        compute_dtype="bfloat16")[1]
-        for preset in (MULTISCALE, PROPAGATE)}
-    for variant in ("multiscale", "propagate"):
-        phase_trainer_openlane(torch, card, frames_per_clip, variant)
     return out
 
 
@@ -2393,19 +2634,41 @@ def phase_eval_cli(torch, card, state_dict):
             ("evaluate", ["--pred-dir", pred, "--anno-dir", anno,
                           "--height", "720", "--width", "1280", "--native",
                           "--temporal"]))
-        for name, args in runs:
+        # test_vil and test_ol side by side, then evaluate on test_vil's
+        for batch in (runs[:2], runs[2:]):
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", f"phnet_torch.run.{name}", *args],
-                capture_output=True, text=True, timeout=600, cwd=root,
-                env=env)
-            tail = (proc.stdout.strip().splitlines() or [""])[-1]
-            print(f"[eval cli] {name}: exit {proc.returncode} in "
-                  f"{time.perf_counter() - t0:.1f} s: {tail} [{card}]")
-            if proc.returncode != 0:
-                raise AssertionError(f"[eval cli] {name} exited "
-                                     f"{proc.returncode}:\n{proc.stdout}\n"
-                                     f"{proc.stderr}")
+            procs = []
+            try:
+                for name, args in batch:  # output to files: no pipe fills
+                    logs = [open(os.path.join(tmp, f"{name}.{k}"), "w+")
+                            for k in ("out", "err")]
+                    procs.append((name, logs, subprocess.Popen(
+                        [sys.executable, "-m", f"phnet_torch.run.{name}",
+                         *args], stdout=logs[0], stderr=logs[1], text=True,
+                        cwd=root, env=env)))
+                for _, _, proc in procs:
+                    proc.wait(timeout=600)
+            finally:
+                for _, logs, proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            outs = []
+            for name, logs, proc in procs:
+                for f in logs:
+                    f.seek(0)
+                outs.append((name, proc, logs[0].read(), logs[1].read()))
+                for f in logs:
+                    f.close()
+            for name, proc, stdout, stderr in outs:
+                tail = (stdout.strip().splitlines() or [""])[-1]
+                print(f"[eval cli] {name}: exit {proc.returncode} in "
+                      f"{time.perf_counter() - t0:.1f} s (of {len(batch)} "
+                      f"side by side): {tail} [{card}]")
+                if proc.returncode != 0:
+                    raise AssertionError(f"[eval cli] {name} exited "
+                                         f"{proc.returncode}:\n{stdout}\n"
+                                         f"{stderr}")
         n_ol = len(lines_tree(os.path.join(tmp, "ol_pred")))
         if len(lines_tree(pred)) != 8 or n_ol != 4:
             raise AssertionError(f"[eval cli] wrote {len(lines_tree(pred))} "
@@ -3384,29 +3647,192 @@ def phase_model_axis_training(torch, card,
             "k2_per_step_per_rank": per_step, "apart": apart}
 
 
+def phase_export(torch, card, state_dict, ticks=8, streams=4):
+    """Phase 44: the deployment artifact. The full-width VIL-100 model with
+    the seeded weights, ``streams`` streams, exported on the card twice:
+    in float32 by ``export_serving_step`` and in w8 by the command line
+    (``python -m phnet_torch.run.export_model --quantize w8`` from a port
+    checkpoint of the same weights). Each is loaded by ``DeployedServer``
+    and ticks ``ticks`` frames a stream beside a live ``StreamingServer``
+    of the same weights and mode, in turns, on the same frames. Gates per
+    tick: valid slots and the memory mask equal, kept rows and memory
+    values within 1e-5 of max |live|; the counters, zeroed just before the
+    artifacts' ticks and advanced only by them, must show K1 once and K2
+    three times a tick through the artifact, and K3 12 times in w8; the
+    loaded graph must hold the ``phnet::`` operators (one lane NMS, a
+    router chain a refine stage, the w8 products). Prints the export,
+    save and load seconds, the artifact's MiB and both tick walls p50
+    (frames up, the tick, kept rows and valid slots down; ticks 1..)."""
+    from phnet_torch.config import vil100_config
+    from phnet_torch.export import DeployedServer, export_serving_step
+    from phnet_torch.ops import nms as tnms
+    from phnet_torch.ops import router_chain as trc
+    from phnet_torch.ops import w8_matmul as tw8
+    from phnet_torch.run import export_model
+    from phnet_torch.serving import StreamingServer
+
+    cfg = vil100_config()
+    m = cfg.model
+    rng = np.random.default_rng(6)
+    frames = [rng.normal(size=(streams, m.img_h, m.img_w, 3)).astype(
+        np.float32) for _ in range(ticks)]
+    per_tick = {"none": (1, 3, 0), "w8": (1, 3, len(w8_products(cfg)))}
+    results = {}
+    with tempfile.TemporaryDirectory() as root:
+        for quantize, want in per_tick.items():
+            t0 = time.perf_counter()
+            art = os.path.join(root, quantize)
+            gc.collect()
+            torch.cuda.empty_cache()
+            if quantize == "none":
+                export_serving_step(m, state_dict, art, batch=streams)
+            else:
+                ckpt = write_port_checkpoint(torch, cfg, state_dict,
+                                             os.path.join(root, "run"))
+                export_model.main(["--checkpoint", ckpt, "--out", art,
+                                   "--batch", str(streams), "--quantize",
+                                   quantize])
+            made_s = time.perf_counter() - t0
+            w0 = time.perf_counter()
+            dep = DeployedServer(art)
+            load_s = time.perf_counter() - w0
+            mib = sum(os.path.getsize(os.path.join(art, f))
+                      for f in os.listdir(art)) / 2 ** 20
+            graph = {n: sum(str(node.target) == f"phnet.{n}.default"
+                            for node in dep.graph.nodes)
+                     for n in ("nms_keeps", "router_chain", "w8_matmul")}
+            if tuple(graph.values()) != want:
+                raise AssertionError(f"[export {quantize}] the loaded graph "
+                                     f"holds {graph}, want {want}")
+            live = StreamingServer(quantized(cfg, quantize), state_dict,
+                                   max_streams=streams)
+            sids = [live.attach() for _ in range(streams)]
+            tnms.lane_nms.launches = 0
+            trc.router_chain.launches = trc.router_chain.launches_bf16 = 0
+            tw8.w8_matmul.launches = 0
+            counts = np.zeros(4, np.int64)
+            walls, live_walls = [], []
+            worst_kept = worst_mem = 0.0
+            n_kept = 0
+            for i in range(ticks):
+                torch.cuda.synchronize()
+                before = np.array([tnms.lane_nms.launches,
+                                   trc.router_chain.launches,
+                                   tw8.w8_matmul.launches,
+                                   trc.router_chain.launches_bf16])
+                w0 = time.perf_counter()
+                kept, valid = dep.tick(frames[i])
+                walls.append(time.perf_counter() - w0)
+                counts += np.array([tnms.lane_nms.launches,
+                                    trc.router_chain.launches,
+                                    tw8.w8_matmul.launches,
+                                    trc.router_chain.launches_bf16]) - before
+                torch.cuda.synchronize()
+                w0 = time.perf_counter()
+                lk, lv, _ = live.step_async({s: frames[i][s] for s in sids})
+                lk, lv = live.gather(lk), live.gather(lv)
+                live_walls.append(time.perf_counter() - w0)
+                mem = live.memory
+                if not (np.array_equal(valid, lv) and torch.equal(
+                        dep.memory[1], mem.mask)):
+                    raise AssertionError(f"[export {quantize}] tick {i}: "
+                                         f"valid slots or memory mask differ "
+                                         f"from the live server's")
+                worst_kept = max(worst_kept, float(np.abs(kept - lk).max())
+                                 / max(float(np.abs(lk).max()), 1e-30))
+                worst_mem = max(worst_mem, float(
+                    (dep.memory[0] - mem.values).abs().max()
+                    / mem.values.abs().max().clamp_min(1e-30)))
+                n_kept += int(valid.sum())
+                if int(dep.memory[2]) != mem.t:
+                    raise AssertionError(f"[export {quantize}] t "
+                                         f"{int(dep.memory[2])} against "
+                                         f"{mem.t}")
+            if worst_kept > 1e-5 or worst_mem > 1e-5 or n_kept == 0 \
+                    or not np.isfinite(kept).all():
+                raise AssertionError(
+                    f"[export {quantize}] kept rows {worst_kept:.3g}, memory "
+                    f"{worst_mem:.3g} of max |live| from the live server's "
+                    f"(bound 1e-5); {n_kept} kept slots")
+            if tuple(counts) != tuple(w * ticks for w in want) + (0,):
+                raise AssertionError(
+                    f"[export {quantize}] launches through the artifact over "
+                    f"{ticks} ticks lane_nms {counts[0]}, router_chain "
+                    f"{counts[1]} (bf16 mode {counts[3]}), w8_matmul "
+                    f"{counts[2]}: want {want} a tick")
+            seconds = dep.manifest["seconds"]
+            p50, live_p50 = (float(np.median(np.array(w[1:]) * 1e3))
+                             for w in (walls, live_walls))
+            how = ("export_serving_step" if quantize == "none"
+                   else "the command line from a checkpoint")
+            print(f"[export {quantize}] VIL full width, {streams} streams, "
+                  f"by {how} in {made_s:.1f} s: torch.export "
+                  f"{seconds['export']:.2f} s, save {seconds['save']:.2f} s, "
+                  f"load {load_s:.2f} s; artifact {mib:.1f} MiB; graph "
+                  f"{graph}; {ticks} ticks beside the live server (cuDNN "
+                  f"TF32 flag {torch.backends.cudnn.allow_tf32}): keep sets "
+                  f"and memory masks equal, kept rows within {worst_kept:.3g}"
+                  f" and memory within {worst_mem:.3g} of max |live|; "
+                  f"{n_kept} kept slots; launches a tick through the "
+                  f"artifact lane_nms {counts[0] // ticks}, router_chain "
+                  f"{counts[1] // ticks}, w8_matmul {counts[2] // ticks}; "
+                  f"tick wall p50 (ticks 1..) deployed {p50:.2f} ms, live "
+                  f"{live_p50:.2f} ms [{card}]", flush=True)
+            results[quantize] = {
+                "lane_nms": int(counts[0]), "router_chain": int(counts[1]),
+                "w8_matmul": int(counts[2]), "export_s": seconds["export"],
+                "save_s": seconds["save"], "load_s": load_s, "mib": mib,
+                "tick_p50_ms": p50, "live_tick_p50_ms": live_p50}
+            del dep, live
+    return results
+
+
 def lap(t0, tag):
     """Print the seconds since the script started, after ``tag``."""
     print(f"[time] {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def main() -> int:
-    import torch
+# the CPU sides of the card-against-CPU checks, in the order run_phases
+# asks for them (end_to_end: preset, quantize, compute dtype, chain_bf16,
+# frames, backbone; train: preset, frames, backbone; train_bf16: preset,
+# router_train_chain_f32, frames, one-ulp seeds)
+VIL, OL = "vil100_config", "openlane_config"
+CPU_JOBS = (
+    ("end_to_end", VIL, "none", "float32", None, 2, None),  # phase 6
+    ("end_to_end", VIL, "w8", "float32", None, 2, None),  # 9
+    ("end_to_end", OL, "none", "float32", None, 2, None),  # 13
+    ("end_to_end", MULTISCALE, "none", "float32", None, 2, None),  # 14
+    ("train", VIL, 4, None),  # 15
+    ("end_to_end", VIL, "none", "bfloat16", None, 2, None),  # 20
+    ("end_to_end", VIL, "w8", "bfloat16", None, 2, None),
+    ("end_to_end", VIL, "none", "float32", True, 2, None),
+    ("end_to_end", PROPAGATE, "none", "float32", None, 3, None),  # 27
+    ("end_to_end", PROPAGATE, "none", "bfloat16", None, 3, None),
+    ("end_to_end", MULTISCALE, "none", "bfloat16", None, 2, None),  # 28
+    *(("end_to_end", VIL, "none", dtype, None, 2, b)  # 37
+      for b in ("revcol", "resnet50", "groupnorm")
+      for dtype in ("float32", "bfloat16")),
+    ("train_bf16", VIL, False, 4, (5, 6)),  # 21
+    ("train_bf16", VIL, True, 2, (5,)),
+    ("train", OL, 4, None),  # 22
+    ("train_bf16", OL, False, 4, (5, 6)),
+    ("train", MULTISCALE, 2, None),  # 29
+    ("train_bf16", MULTISCALE, False, 4, (5, 6)),
+    ("train", PROPAGATE, 2, None),
+    ("train_bf16", PROPAGATE, False, 4, (5, 6)),
+    *(("train", VIL, 2, b)  # 39
+      for b in ("revcol", "resnet50", "groupnorm")))
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    try:
-        import phnet_torch  # noqa: F401
-    except ImportError as exc:
-        print(f"chip_smoke: phnet_torch not importable ({exc}); run from "
-              "the repository root", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+
+def run_phases(torch, card, t0):
+    """Phases 2-44. The phases that need nothing of the CPU's run first
+    and those whose checks wait for :data:`CPU_JOBS` later (21-22, 29,
+    39), so that the background process is ahead of them; the command
+    lines' subprocesses (30-36, 41, 43) run last, when it has ended.
+    Returns the numbers that the ``kernels`` line and the summaries
+    read."""
     from phnet_torch.config import vil100_config
 
-    t0 = time.perf_counter()
-    card = phase_device(torch)
     phase_build()
     nms = phase_nms(torch, card)
     chain = phase_router(torch, card)
@@ -3445,6 +3871,29 @@ def main() -> int:
     w8_bf16x = phase_w8_bf16x(torch, card)
     bf16 = phase_bf16(torch, card)
     lap(t0, "phases 18-20")
+    training_bf16 = phase_train_throughput(torch, card, timed=1,
+                                           compute_dtype="bfloat16")
+    training_ol = phase_train_throughput(
+        torch, card, batches=(1,), timed=1, preset="openlane_config",
+        compute_dtype="bfloat16", counted=())
+    phase_trainer_openlane(torch, card, frames_per_clip=2)
+    lap(t0, "phases 23-24")
+    nms_v3 = phase_nms(torch, card, layout="openlane", a=244)
+    v3 = phase_propagate(torch, card)
+    ms_bf16 = phase_multiscale_bf16(torch, card)
+    lap(t0, "phases 25-28")
+    backbones = phase_backbones(torch, card)
+    backbone_pipe = phase_pipeline(torch, card, seeded_state_dict(
+        torch, with_backbone(vil100_config(), "revcol")), quantize="none",
+        clips=1, backbone="revcol")
+    lap(t0, "phases 37-38")
+    mesh_serving = phase_mesh_serving(torch, card, state_dict)
+    torch.backends.cudnn.allow_tf32 = True  # a user's default
+    try:
+        exported = phase_export(torch, card, state_dict)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    lap(t0, "phases 42, 44")
     torch.backends.cudnn.allow_tf32 = True  # a user's default
     try:
         phase_train_parity_bf16(torch, card)
@@ -3454,18 +3903,12 @@ def main() -> int:
         phase_train_parity_bf16(torch, card, "openlane_config")
     finally:
         torch.backends.cudnn.allow_tf32 = False
-    training_bf16 = phase_train_throughput(torch, card, timed=1,
-                                           compute_dtype="bfloat16")
-    training_ol = phase_train_throughput(
-        torch, card, batches=(1,), timed=1, preset="openlane_config",
-        compute_dtype="bfloat16", counted=())
-    phase_trainer_openlane(torch, card, frames_per_clip=2)
-    lap(t0, "phases 21-24")
-    nms_v3 = phase_nms(torch, card, layout="openlane", a=244)
-    v3 = phase_propagate(torch, card)
-    ms_bf16 = phase_multiscale_bf16(torch, card)
+    lap(t0, "phases 21-22")
     train_heads = phase_train_heads(torch, card)
-    lap(t0, "phases 25-29")
+    lap(t0, "phase 29")
+    train_backbones = phase_train_backbones(torch, card)
+    phase_revcol_checkpoint(torch, card)
+    lap(t0, "phases 39-40")
     phase_host_build()
     readers = phase_readers(torch, card)
     phase_eval_pipeline(torch, card, state_dict, readers["vil"]["clips"])
@@ -3479,18 +3922,49 @@ def main() -> int:
             "vil": training_bf16[1]["step_p50_ms"],
             "ol": training_ol[1]["step_p50_ms"]})
     lap(t0, "phases 30-36")
-    backbones = phase_backbones(torch, card)
-    backbone_pipe = phase_pipeline(torch, card, seeded_state_dict(
-        torch, with_backbone(vil100_config(), "revcol")), quantize="none",
-        clips=1, backbone="revcol")
-    train_backbones = phase_train_backbones(torch, card)
-    phase_revcol_checkpoint(torch, card)
-    lap(t0, "phases 37-40")
     distributed = phase_distributed_training(torch, card)
-    mesh_serving = phase_mesh_serving(torch, card, state_dict)
-    lap(t0, "phases 41-42")
     model_axis = phase_model_axis_training(torch, card)
-    lap(t0, "phase 43")
+    lap(t0, "phases 41, 43")
+    return (nms, chain, launches, w8, launches_w8, nms_ol, ms_products,
+            w8_ms, ol, training, chain_bf16, w8_bf16x, bf16, ol_f32_k2,
+            training_bf16, training_ol, nms_v3, v3, ms_bf16, train_heads,
+            train_cli, backbones, backbone_pipe, train_backbones,
+            distributed, mesh_serving, model_axis, exported)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import phnet_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: phnet_torch not importable ({exc}); run from "
+              "the repository root", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    global CPU_REFS
+    t0 = time.perf_counter()
+    card = phase_device(torch)
+    CPU_REFS = CpuReferences(torch, CPU_JOBS)
+    try:
+        got = run_phases(torch, card, t0)
+    finally:
+        refs, CPU_REFS = CPU_REFS, None
+        refs.close()
+    print(f"[cpu references] {len(refs.taken)} of {len(refs.keys)} CPU "
+          f"sides from the background process ({refs.threads} threads): "
+          f"{refs.seconds:.1f} s of its time, {refs.waited:.1f} s of "
+          f"waiting for it [{card}]")
+    (nms, chain, launches, w8, launches_w8, nms_ol, ms_products, w8_ms, ol,
+     training, chain_bf16, w8_bf16x, bf16, ol_f32_k2, training_bf16,
+     training_ol, nms_v3, v3, ms_bf16, train_heads, train_cli, backbones,
+     backbone_pipe, train_backbones, distributed, mesh_serving, model_axis,
+     exported) = got
 
     w8_ms_frame = stage_sum(w8_ms, 4, [name for name, _, _ in ms_products])
     single, multi = "openlane_config", "openlane_multiscale_config"
@@ -3568,6 +4042,9 @@ def main() -> int:
                 model_axis["router_chain"]
         if name != "w8_matmul":  # phase 42: the split server's ticks
             kernels[-1]["mesh_serving_launches"] = mesh_serving[name]
+        # phase 44: the ticks of the exported program (w8's for K3)
+        kernels[-1]["export_launches"] = exported[
+            "w8" if name == "w8_matmul" else "none"][name]
     for name, base, numbers, source, count in (  # the bf16 paths' entries
             ("router_chain_bf16", "router_chain",
              dict(chain_bf16[16], library_ms=None),

@@ -43,7 +43,7 @@ configurations do not train.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn as nn
@@ -61,11 +61,12 @@ from .head_v3 import PropagatingLaneHead
 
 class MemoryState(NamedTuple):
     """values [B, S, W, L+1, D]; mask [B, W, L+1] bool; t: frames written
-    (the ring position of the next write is ``t % W``)."""
+    (the ring position of the next write is ``t % W``), a Python int, or
+    a 0-d integer tensor in a traced step (``phnet_torch.export``)."""
 
     values: torch.Tensor
     mask: torch.Tensor
-    t: int
+    t: Union[int, torch.Tensor]
 
 
 class InferFrameOut(NamedTuple):
@@ -94,12 +95,13 @@ class V3MemoryState(NamedTuple):
     """The prior-propagation head's carry: one frame of kept rows.
     feat [B, S, K, attn_dim] (their query rows per stage); priors [B, K,
     dim] (their predictions, the next frame's extra priors); mask [B, K]
-    bool; t: frames seen."""
+    bool; t: frames seen (an int, or a 0-d integer tensor in a traced
+    step)."""
 
     feat: torch.Tensor
     priors: torch.Tensor
     mask: torch.Tensor
-    t: int
+    t: Union[int, torch.Tensor]
 
 
 def init_memory(cfg: ModelConfig, batch: int, window: int, device=None):
@@ -143,7 +145,10 @@ def write_memory(mem: MemoryState, attn_feat: torch.Tensor,
     [S, B, L] (each stage its own, as in training); invalid slots
     (``slot_valid`` [B, L], by default ``slot_idx >= 0``) are zeroed.
     Distinct anchors per stage and stream. Returns a new state; ``mem``
-    is not modified, and gradients flow into the written rows."""
+    is not modified, and gradients flow into the written rows. A tensor
+    ``t`` (a traced step) writes with ``index_copy`` at the position it
+    holds: a copy, as the int's slice assignment, so the rows are the
+    same bits."""
     s, b, a, d = attn_feat.shape
     if slot_valid is None:
         slot_valid = slot_idx >= 0
@@ -156,6 +161,12 @@ def write_memory(mem: MemoryState, attn_feat: torch.Tensor,
     frame_vals = torch.cat([pos, neg[:, :, None]], dim=2).transpose(0, 1)
     frame_mask = torch.cat(
         [slot_valid, slot_valid.new_ones((b, 1))], dim=1)
+    if isinstance(mem.t, torch.Tensor):
+        w_idx = (mem.t % mem.values.shape[2]).reshape(1).long()
+        values = mem.values.index_copy(
+            2, w_idx, frame_vals[:, :, None].to(mem.values.dtype))
+        mask = mem.mask.index_copy(1, w_idx, frame_mask[:, None])
+        return MemoryState(values=values, mask=mask, t=mem.t + 1)
     w_pos = mem.t % mem.values.shape[2]
     values = mem.values.clone()
     mask = mem.mask.clone()

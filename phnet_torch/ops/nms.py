@@ -19,6 +19,14 @@ CUDA tensors and their plain PyTorch version for CPU tensors:
 model's path), :func:`lane_nms` from proposal rows to the keeps. The
 kernel picks by block argmax instead of sorting and walking; it keeps the
 same proposals (see the note in its source).
+
+Each entry is the PyTorch operator ``phnet::nms_keeps`` /
+``phnet::lane_nms`` (``torch.library.custom_op``): its CUDA
+implementation launches the kernel, its CPU implementation runs the plain
+version, and its fake implementation gives the output shapes, so that
+``torch.export`` records the entry as one node of the graph. The
+operators take the lane layout as the columns and scales the kernel
+reads.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+from torch import Tensor
 
 from ..config import LaneSpec
 from . import _build
@@ -125,12 +134,36 @@ def nms_keeps_plain(routed: torch.Tensor, scores: torch.Tensor,
                     spec: LaneSpec, img_w: int, conf_threshold: float,
                     thresh: float, top_k: int):
     """The plain PyTorch version of :func:`nms_keeps`, on any device: the
-    confidence filter, :func:`nms_proposals_from_predictions`,
-    :func:`lane_nms_plain` and the gather of the kept rows."""
+    confidence filter, the NMS rows of
+    :func:`nms_proposals_from_predictions`, :func:`lane_nms_plain` and the
+    gather of the kept rows."""
+    return _keeps_plain(routed, scores, _lane_columns(spec),
+                        spec.n_offsets, float(img_w - 1),
+                        float(spec.n_strips), conf_threshold, thresh, top_k)
+
+
+def _lane_columns(spec: LaneSpec) -> Tuple[int, int, int]:
+    """The columns of start_y, length and the first x: what the kernel
+    reads of the lane layout."""
+    return spec.col_start_y, spec.col_length, spec.col_xs
+
+
+def _keeps_plain(routed, scores, cols, n_offsets: int, xs_scale: float,
+                 len_scale: float, conf_threshold: float, thresh: float,
+                 top_k: int):
+    """:func:`nms_keeps_plain` from the columns and scales: the NMS rows
+    hold what :func:`lane_nms_plain` reads (start_y, the scaled length and
+    xs) where :func:`nms_proposals_from_predictions` puts them; the
+    start_x column, which it does not read, holds start_y."""
+    c_y, c_len, c_xs = cols
     valid = scores >= conf_threshold
-    props = nms_proposals_from_predictions(routed, spec, img_w)
+    start_y = routed[..., c_y:c_y + 1]
+    props = torch.cat([routed[..., :2], start_y, start_y,
+                       routed[..., c_len:c_len + 1] * len_scale,
+                       routed[..., c_xs:c_xs + n_offsets] * xs_scale],
+                      dim=-1)
     keep_idx, num_kept, keep_mask = lane_nms_plain(
-        props, scores, valid, thresh, spec.n_offsets, top_k)
+        props, scores, valid, thresh, n_offsets, top_k)
     gather_idx = keep_idx.clamp(0, routed.shape[1] - 1)
     kept = torch.gather(
         routed, 1, gather_idx[..., None].expand(-1, -1, routed.shape[-1]))
@@ -199,6 +232,61 @@ def _nms_cuda(rows, scores, valid: Optional[torch.Tensor], cols,
     return kept, keep_idx, num_kept, keep_mask
 
 
+@torch.library.custom_op("phnet::nms_keeps", mutates_args=(),
+                         device_types="cpu")
+def _nms_keeps_op(routed: Tensor, scores: Tensor, col_start_y: int,
+                  col_length: int, col_xs: int, n_offsets: int,
+                  xs_scale: float, len_scale: float, conf_threshold: float,
+                  thresh: float, top_k: int
+                  ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    return _keeps_plain(routed, scores, (col_start_y, col_length, col_xs),
+                        n_offsets, xs_scale, len_scale, conf_threshold,
+                        thresh, top_k)
+
+
+@_nms_keeps_op.register_kernel("cuda")
+def _(routed, scores, col_start_y, col_length, col_xs, n_offsets, xs_scale,
+      len_scale, conf_threshold, thresh, top_k):
+    return _nms_cuda(routed, scores, None, (col_start_y, col_length, col_xs),
+                     n_offsets, xs_scale, len_scale, conf_threshold, thresh,
+                     top_k, gather=True)
+
+
+@_nms_keeps_op.register_fake
+def _(routed, scores, col_start_y, col_length, col_xs, n_offsets, xs_scale,
+      len_scale, conf_threshold, thresh, top_k):
+    b, a, dim = routed.shape
+    return (routed.new_empty((b, top_k, dim)), *_keeps_like(routed, top_k))
+
+
+def _keeps_like(rows: Tensor, top_k: int):
+    """Empty (keep_idx, num_kept, keep_mask) for rows [B, A, ...]."""
+    b, a = rows.shape[:2]
+    return (rows.new_empty((b, top_k), dtype=torch.long),
+            rows.new_empty((b,), dtype=torch.long),
+            rows.new_empty((b, a), dtype=torch.bool))
+
+
+@torch.library.custom_op("phnet::lane_nms", mutates_args=(),
+                         device_types="cpu")
+def _lane_nms_op(proposals: Tensor, scores: Tensor, valid: Tensor,
+                 thresh: float, n_offsets: int, top_k: int
+                 ) -> Tuple[Tensor, Tensor, Tensor]:
+    return lane_nms_plain(proposals, scores, valid, thresh, n_offsets, top_k)
+
+
+@_lane_nms_op.register_kernel("cuda")
+def _(proposals, scores, valid, thresh, n_offsets, top_k):
+    return _nms_cuda(proposals, scores, valid.contiguous(), (2, 4, 5),
+                     n_offsets, 1.0, 1.0, 0.0, thresh, top_k,
+                     gather=False)[1:]
+
+
+@_lane_nms_op.register_fake
+def _(proposals, scores, valid, thresh, n_offsets, top_k):
+    return _keeps_like(proposals, top_k)
+
+
 def nms_keeps(routed: torch.Tensor, scores: torch.Tensor, spec: LaneSpec,
               img_w: int, conf_threshold: float, thresh: float,
               top_k: int):
@@ -208,19 +296,14 @@ def nms_keeps(routed: torch.Tensor, scores: torch.Tensor, spec: LaneSpec,
 
     Returns kept [B, top_k, dim] (the routed rows of the keeps; empty
     slots hold row 0), keep_idx [B, top_k] (descending score, padded with
-    -1), num_kept [B] and keep_mask [B, A]. CUDA tensors run the kernel
+    -1), num_kept [B] and keep_mask [B, A]. One call of the operator
+    ``phnet::nms_keeps``: CUDA tensors run the kernel
     ``csrc/lane_nms.cu`` in one launch; CPU tensors run
     :func:`nms_keeps_plain`."""
-    if routed.is_cuda:
-        return _nms_cuda(
-            routed, scores, None,
-            (spec.col_start_y, spec.col_length, spec.col_xs),
-            spec.n_offsets, float(img_w - 1), float(spec.n_strips),
-            conf_threshold, thresh, top_k, gather=True)
-    if routed.device.type == "cpu":
-        return nms_keeps_plain(routed, scores, spec, img_w, conf_threshold,
-                               thresh, top_k)
-    raise ValueError(f"nms_keeps: unsupported device {routed.device}")
+    return torch.ops.phnet.nms_keeps(
+        routed, scores, *_lane_columns(spec), spec.n_offsets,
+        float(img_w - 1), float(spec.n_strips), float(conf_threshold),
+        float(thresh), int(top_k))
 
 
 def lane_nms(proposals: torch.Tensor, scores: torch.Tensor,
@@ -232,18 +315,13 @@ def lane_nms(proposals: torch.Tensor, scores: torch.Tensor,
     :func:`nms_proposals_from_predictions`; scores: [B, A]; valid: [B, A]
     bool (invalid rows are never kept and suppress nothing).
     Returns keep_idx [B, top_k] (original order, padded with -1),
-    num_kept [B] and keep_mask [B, A]. CUDA tensors run the kernel
-    ``csrc/lane_nms.cu`` (columns 2, 4 and 5, unscaled); CPU tensors run
+    num_kept [B] and keep_mask [B, A]. One call of the operator
+    ``phnet::lane_nms``: CUDA tensors run the kernel ``csrc/lane_nms.cu``
+    (columns 2, 4 and 5, unscaled); CPU tensors run
     :func:`lane_nms_plain`.
     """
-    if proposals.is_cuda:
-        return _nms_cuda(proposals, scores, valid.contiguous(), (2, 4, 5),
-                         n_offsets, 1.0, 1.0, 0.0, thresh, top_k,
-                         gather=False)[1:]
-    if proposals.device.type == "cpu":
-        return lane_nms_plain(proposals, scores, valid, thresh, n_offsets,
-                              top_k)
-    raise ValueError(f"lane_nms: unsupported device {proposals.device}")
+    return torch.ops.phnet.lane_nms(proposals, scores, valid, float(thresh),
+                                    int(n_offsets), int(top_k))
 
 
 lane_nms.launches = 0  # kernel launches of both entries, counted where the

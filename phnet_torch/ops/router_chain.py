@@ -13,7 +13,11 @@ with a bf16 output. The kernel runs it as a second instance of the same
 CUDA kernel.
 
 :func:`router_chain` is the wrapper: CUDA tensors run the kernel
-``csrc/router_chain.cu``, CPU tensors run :func:`router_chain_plain`.
+``csrc/router_chain.cu``, CPU tensors run :func:`router_chain_plain`,
+both as the PyTorch operator ``phnet::router_chain``
+(``torch.library.custom_op``, ``bf16`` one of its arguments), whose fake
+implementation gives the output's shape, so that ``torch.export`` records
+the chain as one node of the graph.
 :func:`router_plan` chooses how the kernel groups the planes. Where a
 gradient is wanted, the wrapper goes through :class:`RouterChainFn`: its
 forward is the same launch (in either mode), its backward recomputes
@@ -33,6 +37,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from . import _build
 
@@ -218,15 +223,28 @@ def _chain_cuda(x, taps, bias, ln_params, blocks: int, bf16: bool = False):
     return out
 
 
+@torch.library.custom_op("phnet::router_chain", mutates_args=(),
+                         device_types="cpu")
+def _chain_op(x: Tensor, taps: Tensor, bias: Tensor, ln_params: Tensor,
+              blocks: int, bf16: bool) -> Tensor:
+    return router_chain_plain(x, taps, bias, ln_params, blocks, bf16)
+
+
+@_chain_op.register_kernel("cuda")
+def _(x, taps, bias, ln_params, blocks, bf16):
+    return _chain_cuda(x.contiguous(), taps.contiguous(), bias.contiguous(),
+                       ln_params.contiguous(), blocks, bf16)
+
+
+@_chain_op.register_fake
+def _(x, taps, bias, ln_params, blocks, bf16):
+    return x.new_empty(x.shape, dtype=torch.bfloat16 if bf16 else x.dtype)
+
+
 def _chain(x, taps, bias, ln_params, blocks: int,
            bf16: bool = False) -> torch.Tensor:
-    if x.is_cuda:
-        return _chain_cuda(x.contiguous(), taps.contiguous(),
-                           bias.contiguous(), ln_params.contiguous(), blocks,
-                           bf16)
-    if x.device.type == "cpu":
-        return router_chain_plain(x, taps, bias, ln_params, blocks, bf16)
-    raise ValueError(f"router_chain: unsupported device {x.device}")
+    return torch.ops.phnet.router_chain(x, taps, bias, ln_params,
+                                        int(blocks), bool(bf16))
 
 
 class RouterChainFn(torch.autograd.Function):

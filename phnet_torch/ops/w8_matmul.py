@@ -8,7 +8,10 @@ flattened into rows.
 
 :func:`w8_matmul` is the wrapper: CUDA tensors run the kernel
 ``csrc/w8_matmul.cu``, CPU tensors run the plain version
-:func:`phnet_torch.ops.quant.w8_matmul_prequant`.
+:func:`phnet_torch.ops.quant.w8_matmul_prequant`, both as the PyTorch
+operator ``phnet::w8_matmul`` (``torch.library.custom_op``), whose fake
+implementation gives the output's shape, so that ``torch.export`` records
+each product as one node of the graph.
 
 :func:`w8_plan` chooses the kernel's tiling from (M, K, N) and the SM
 count: the output tile width and the split-K count, and the padding that
@@ -26,6 +29,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from . import _build
 from .quant import w8_matmul_prequant
@@ -183,18 +187,31 @@ def _w8_cuda(x: torch.Tensor, wq: torch.Tensor,
     return out if not plan.pad_n else out[:, :n].contiguous()
 
 
+@torch.library.custom_op("phnet::w8_matmul", mutates_args=(),
+                         device_types="cpu")
+def _w8_op(x: Tensor, wq: Tensor, sw: Tensor) -> Tensor:
+    return w8_matmul_prequant(x, wq, sw)
+
+
+@_w8_op.register_kernel("cuda")
+def _(x, wq, sw):
+    k, n = wq.shape
+    out = _w8_cuda(x.reshape(-1, k).contiguous(), wq.contiguous(),
+                   sw.contiguous())
+    return out.reshape(*x.shape[:-1], n)
+
+
+@_w8_op.register_fake
+def _(x, wq, sw):
+    return x.new_empty((*x.shape[:-1], wq.shape[1]), dtype=torch.float32)
+
+
 def w8_matmul(x: torch.Tensor, wq: torch.Tensor,
               sw: torch.Tensor) -> torch.Tensor:
-    """``(bf16(x) @ bf16(wq)) * sw`` in f32 over x [..., K]. CUDA tensors
-    run the kernel, CPU tensors the plain version."""
-    k, n = wq.shape
-    if x.is_cuda:
-        out = _w8_cuda(x.reshape(-1, k).contiguous(), wq.contiguous(),
-                       sw.contiguous())
-        return out.reshape(*x.shape[:-1], n)
-    if x.device.type == "cpu":
-        return w8_matmul_prequant(x, wq, sw)
-    raise ValueError(f"w8_matmul: unsupported device {x.device}")
+    """``(bf16(x) @ bf16(wq)) * sw`` in f32 over x [..., K]: one call of
+    the operator ``phnet::w8_matmul``. CUDA tensors run the kernel, CPU
+    tensors the plain version."""
+    return torch.ops.phnet.w8_matmul(x, wq, sw)
 
 
 w8_matmul.launches = 0  # kernel launches, counted where the kernel launches
