@@ -212,16 +212,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     |live|, K1 once, K2 three times and (w8) K3 12 times a tick launched
     inside the loaded program, whose graph holds the ``phnet::``
     operators; export, save and load seconds, the artifact's MiB and both
-    tick walls.
+    tick walls;
+45. the segmentation and flow planes (no kernel on their path): Farneback
+    in PyTorch on the card on a 1080x1920 pair moved by a known sub-pixel
+    shift (timed) and on the fixture's VIL-100 frames against the CPU;
+    lane masks (``write_mask``) and flow JPEGs (``generate_flow_jpgs``,
+    nvJPEG) written into a copy of the fixture's VIL-100 tree, read back
+    by the reader with ``load_seg`` / ``load_flow`` in test mode and in
+    train mode (``TrainAugment`` at p_hflip = p_affine = 1) against the
+    CPU's readers on the same bytes and against the CPU's own Farneback
+    flow within the JPEG round trip; ``SegDecoder`` on the stacked FPN
+    levels and ``WarpModel`` on level 0 with the read flow, card against
+    CPU; J and F of the decoder's argmax masks (:func:`phase_planes`).
 
 The phases run in another order than their numbers, and the CPU's side
-of every card-against-CPU check (phases 6, 9, 13-15, 20-22, 27-29, 37
-and 39) runs in one background process, on as many threads as the
+of every card-against-CPU check (phases 6, 9, 13-15, 20-22, 27-29, 37,
+39 and 45) runs in one background process, on as many threads as the
 script's own, while the card runs (:class:`CpuReferences`): the phases
 that need no CPU run first, then 21-22, 29 and 39-40, whose CPU steps
-are the longest, then the command lines' subprocesses (30-36, 41, 43).
-Each check holds the background process's weights or clip to the
-card's by a digest of their bytes.
+are the longest, then the command lines' subprocesses (30-36, 41, 43),
+then phase 45, which hands the background process the bytes it decoded
+(the card's machine has no libjpeg) while it goes on. Each check holds
+the background process's weights or clip to the card's by a digest of
+their bytes.
 
 The card machine has one card: more than one card's ranks are held on
 the CPU only (``tests/test_torch_dist_train.py``,
@@ -487,27 +500,39 @@ def fingerprint(torch, tensors):
 def cpu_job(torch, key, **inline):
     """The CPU side of the card-against-CPU check ``key``:
     ``("end_to_end", ...)`` (:func:`cpu_end_to_end`), ``("train", ...)``
-    (:func:`cpu_train`) or ``("train_bf16", ...)``
-    (:func:`cpu_train_bf16`)."""
+    (:func:`cpu_train`), ``("train_bf16", ...)`` (:func:`cpu_train_bf16`)
+    or ``("planes", ...)`` (:func:`cpu_planes`, which takes ``feed``: the
+    payloads the card's phase hands over, one a call)."""
     return {"end_to_end": cpu_end_to_end, "train": cpu_train,
-            "train_bf16": cpu_train_bf16}[key[0]](torch, *key[1:], **inline)
+            "train_bf16": cpu_train_bf16,
+            "planes": cpu_planes}[key[0]](torch, *key[1:], **inline)
 
 
-def cpu_worker(keys, out_dir, results, threads):
+def cpu_worker(keys, out_dir, results, threads, inputs):
     """The background process: each of ``keys`` in turn through
     :func:`cpu_job` on ``threads`` CPU threads, each result saved under
     ``out_dir`` and announced on ``results`` as (key, path, error text,
-    seconds). Stops at the first error. Prints go to stderr: the script's
-    stdout ends in its own lines."""
+    seconds). A ``planes`` job reads what the card hands over from
+    ``inputs`` (paths of saved payloads, :meth:`CpuReferences.feed`).
+    Stops at the first error. Prints go to stderr: the script's stdout
+    ends in its own lines."""
     import torch
 
     sys.stdout = sys.stderr
     torch.set_num_threads(threads)
+
+    def feed():
+        path = inputs.get(timeout=1200)
+        payload = torch.load(path, weights_only=False)
+        os.remove(path)
+        return payload
+
     for i, key in enumerate(keys):
         t0 = time.perf_counter()
         try:
             path = os.path.join(out_dir, f"{i}.pt")
-            torch.save(cpu_job(torch, key), path)
+            inline = {"feed": feed} if key[0] == "planes" else {}
+            torch.save(cpu_job(torch, key, **inline), path)
             results.put((key, path, None, time.perf_counter() - t0))
         except BaseException:
             results.put((key, None, traceback.format_exc(),
@@ -534,8 +559,10 @@ class CpuReferences:
         self.dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
         ctx = multiprocessing.get_context("spawn")
         self.results = ctx.Queue()
+        self.inputs = ctx.Queue()
+        self.fed = 0
         self.proc = ctx.Process(target=cpu_worker, daemon=True, args=(
-            self.keys, self.dir, self.results, self.threads))
+            self.keys, self.dir, self.results, self.threads, self.inputs))
         self.proc.start()
         self.ready, self.taken = {}, set()
         self.seconds, self.waited = 0.0, 0.0
@@ -568,6 +595,17 @@ class CpuReferences:
         os.remove(path)
         return out
 
+    def feed(self, torch, key, payload):
+        """Hand ``payload`` (tensors and plain values) to the job ``key``,
+        which reads it when it runs."""
+        if key not in self.keys or key in self.taken:
+            raise AssertionError(f"CPU references: {key} not listed, or "
+                                 f"taken already")
+        path = os.path.join(self.dir, f"feed{self.fed}.pt")
+        self.fed += 1
+        torch.save(payload, path)
+        self.inputs.put(path)
+
     def close(self):
         """Stop the process and remove its files."""
         if self.proc.is_alive():
@@ -576,8 +614,9 @@ class CpuReferences:
         if self.proc.is_alive():
             self.proc.kill()
             self.proc.join()
-        self.results.close()
-        self.results.cancel_join_thread()
+        for q in (self.results, self.inputs):
+            q.close()
+            q.cancel_join_thread()
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
@@ -2346,12 +2385,13 @@ NVJPEG_MEAN_LEVELS = 0.1
 
 
 def phase_host_build():
-    """Phase 30: the evaluation path's host libraries, with ``g++``: the
-    nvJPEG decoder and the CULane evaluator (the libjpeg loader is the
-    CPU's and does not build where there is no libjpeg)."""
+    """Phase 30: the data and evaluation paths' host libraries, with
+    ``g++``: the nvJPEG decoder and encoder, the CULane evaluator and the
+    PNG codec's unfilter (the libjpeg loader is the CPU's and does not
+    build where there is no libjpeg)."""
     from phnet_torch.ops import _build
 
-    names = ["nvjpeg_decode", "culane_eval"]
+    names = ["nvjpeg_decode", "culane_eval", "png_unfilter"]
     t0 = time.perf_counter()
     _build.build(names)
     print(f"[host build] {names} in {time.perf_counter() - t0:.1f} s (g++ "
@@ -3787,6 +3827,406 @@ def phase_export(torch, card, state_dict, ticks=8, streams=4):
     return results
 
 
+# phase 45: the segmentation and flow planes. The flow planes read back
+# from the card's nvJPEG files, against the CPU's own Farneback flow
+# quantized without a JPEG, may differ by the JPEG round trip
+# (``flow.JPEG_ROUND_TRIP_LEVELS``: cv2's own write and read of the
+# fixture's flow planes, ``tests/test_torch_flow.py``) and one level more
+# where the card's and the CPU's float flows quantize to neighbouring
+# levels
+PLANES_SEED = 11
+PLANES_CLASSES = 9  # the background and VIL-100's 8 lane ids
+PLANES_SHIFT = (1.7, -0.6)  # px of the 1080p pair's known motion
+PLANES_FARNEBACK = {"median": 1e-2, "p999": 1e-1}  # px, card vs CPU
+
+
+def lane_mask(json_path, h, w, half_width=8):
+    """uint8 [h, w]: each lane of a VIL-100 JSON drawn as its ``lane_id``,
+    ``half_width`` pixels either side of its polyline, row by row."""
+    with open(json_path) as f:
+        lanes = json.load(f)["annotations"]["lane"]
+    mask = np.zeros((h, w), np.uint8)
+    cols = np.arange(w)
+    for lane in lanes:
+        pts = np.array(lane["points"], np.float64).reshape(-1, 2)
+        if len(pts) < 2:
+            continue
+        pts = pts[np.argsort(pts[:, 1])]
+        ys = np.arange(max(0, int(np.ceil(pts[0, 1]))),
+                       min(h, int(np.floor(pts[-1, 1])) + 1))
+        xs = np.interp(ys, pts[:, 1], pts[:, 0])
+        hit = np.abs(cols[None] - xs[:, None]) <= half_width
+        mask[ys[:, None].repeat(w, 1)[hit], np.nonzero(hit)[1]] = \
+            lane["lane_id"]
+    return mask
+
+
+def planes_weights(torch):
+    """Seeded weights of the phase's ``SegDecoder`` (192 -> 9 classes) and
+    ``WarpModel`` (64 -> 64), drawn on the CPU."""
+    g = torch.Generator().manual_seed(PLANES_SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    seg = {"conv.weight": randn(PLANES_CLASSES, 192, 1, 1,
+                                scale=192 ** -0.5),
+           "conv.bias": randn(PLANES_CLASSES, scale=0.1)}
+    warp = {"conv.weight": randn(64, 128, 1, 1, scale=128 ** -0.5),
+            "bn.weight": 1.0 + randn(64, scale=0.1),
+            "bn.bias": randn(64, scale=0.1),
+            "bn.running_mean": randn(64, scale=0.1),
+            "bn.running_var": 1.0 + randn(64, scale=0.1).abs()}
+    return seg, warp
+
+
+def planes_models(torch, feats, level0, flow_small):
+    """The decoder's logits of ``feats`` [T, 48, 96, 192] and the warp of
+    each frame's level-0 features onto the next one's along its flow,
+    on the inputs' device, float32 with TF32 off."""
+    from phnet_torch.models.flow_warp import WarpModel
+    from phnet_torch.models.seg_decoder import SegDecoder
+
+    seg_sd, warp_sd = planes_weights(torch)
+    dev = feats.device
+    dec = SegDecoder(384, 768, PLANES_CLASSES, 192).to(dev)
+    dec.load_state_dict(seg_sd)
+    warp = WarpModel(64, 64).to(dev)
+    warp.load_state_dict(warp_sd)
+    with torch.no_grad():
+        return (dec(feats), warp(level0[:-1], level0[1:], flow_small[1:]))
+
+
+class FedDecoder:
+    """A reader's decoder on the CPU that hands out bytes the card decoded
+    (the card's machine has no libjpeg): ``u8`` frames and ``gray``
+    planes by path, ``__call__`` the test mode's resize and normalize of
+    the frames."""
+
+    def __init__(self, torch, u8, gray):
+        self.device = torch.device("cpu")
+        self._torch, self._u8, self._gray = torch, u8, gray
+
+    def u8(self, paths):
+        return self._torch.stack([self._u8[p] for p in paths])
+
+    def gray(self, paths):
+        return self._torch.stack([self._gray[p] for p in paths])
+
+    def __call__(self, paths, cut_px, out_h, out_w):
+        from phnet_torch.data.native_loader import resize_normalize
+
+        return resize_normalize(self.u8(paths), cut_px, out_h, out_w)
+
+
+def planes_readers(torch, tree, device, decoder=None):
+    """The phase's readers of ``tree``: test mode without and with the
+    planes, train mode (``TrainAugment`` with p_hflip = p_affine = 1) with
+    them, on ``device``; ``decoder`` replaces each one's decoder."""
+    from phnet_torch.config import vil100_config
+    from phnet_torch.data.transforms import TrainAugment
+    from phnet_torch.data.vil100 import VIL100Dataset
+
+    m = vil100_config().model
+    out = {"test": VIL100Dataset(tree, m, device=device),
+           "test planes": VIL100Dataset(tree, m, device=device,
+                                        load_seg=True, load_flow=True),
+           "train planes": VIL100Dataset(
+               tree, m, train=True, device=device, sampled_frames=4,
+               samples_per_video=1, seed=PLANES_SEED, load_seg=True,
+               load_flow=True, augment=TrainAugment(
+                   m.img_h, m.img_w, p_hflip=1.0, p_affine=1.0,
+                   rng=np.random.default_rng(PLANES_SEED)))}
+    if decoder is not None:
+        for r in out.values():
+            r.decode = decoder
+    return out
+
+
+def cpu_planes(torch, seed, feed):
+    """The CPU side of phase 45, in two parts fed by the card: (1) the
+    fixture's frames as the card decoded them -> the Farneback flow of
+    each frame against the one before (frame 0 against itself) and its
+    quantized planes; (2) the written tree, the card's decoded frames and
+    flow planes, the decoder's and the warp's inputs -> the readers' clips
+    (test mode with the planes, train mode), the models' outputs and the
+    metric of the CPU's own argmax masks."""
+    from phnet_torch.data.flow import dense_two_frame_flow, quantize_flow
+
+    first = feed()
+    flows, planes = {}, {}
+    for vid, frames in first["frames"].items():
+        prev = None
+        for t, img in enumerate(frames):
+            flow = dense_two_frame_flow(prev if prev is not None else img,
+                                        img, device="cpu")
+            flows[(vid, t)] = flow
+            planes[(vid, t)] = torch.stack(quantize_flow(flow))
+            prev = img
+    second = feed()
+    readers = planes_readers(torch, second["tree"], "cpu", FedDecoder(
+        torch, second["u8"], second["gray"]))
+    clips = {"test": [readers["test planes"][i]
+                      for i in range(len(readers["test planes"]))],
+             "train": readers["train planes"][0]}
+    logits, warped = planes_models(torch, second["feats"], second["level0"],
+                                   second["flow_small"])
+    pred = logits.argmax(-1)
+    top2 = logits.topk(2, -1).values
+    return {"flows": flows, "planes": planes, "clips": clips,
+            "logits": logits, "warped": warped, "pred": pred,
+            "gap": (top2[..., 0] - top2[..., 1]),
+            "metric": planes_metric(pred, second["seg"])}
+
+
+def planes_metric(pred, seg):
+    """J and F means over the lane ids present in ``seg`` [T, H, W], each a
+    video of binary masks of ``pred`` == id against ``seg`` == id."""
+    from phnet_torch.evaluation.video_metrics import evaluate_video_masks
+
+    out = {}
+    for k in range(1, PLANES_CLASSES):
+        gt = [s == k for s in seg]
+        if not any(bool(g.any()) for g in gt):
+            continue
+        res = evaluate_video_masks([p == k for p in pred], gt)
+        out[k] = (res["J"]["mean"], res["F"]["mean"])
+    return out
+
+
+def shifted_texture(torch, h, w, shift, device):
+    """A uint8 texture [h, w] (24 sinusoids of 10 to 40 pixels' period,
+    curved enough for the polynomial expansion) and the same texture moved
+    by ``shift`` = (dx, dy) pixels, computed on ``device``."""
+    y = torch.arange(h, dtype=torch.float64, device=device)[:, None]
+    x = torch.arange(w, dtype=torch.float64, device=device)[None]
+    g = np.random.default_rng(PLANES_SEED)
+    waves = []
+    for _ in range(24):
+        r, th = g.uniform(0.15, 0.6), g.uniform(0, np.pi)
+        waves.append((r * np.cos(th), r * np.sin(th), g.uniform(0, 6.3)))
+
+    def tex(xx, yy):
+        v = sum(torch.sin(a * xx + b * yy + c) for a, b, c in waves)
+        return (127.5 + 8.0 * v).clamp(0, 255).round().to(torch.uint8)
+
+    return tex(x, y), tex(x - shift[0], y - shift[1])
+
+
+def phase_planes(torch, card, state_dict):
+    """Phase 45: the segmentation and flow planes on the card, at full
+    width. (a) Farneback (``data/flow.py``, PyTorch on the card) on a
+    1080x1920 pair, a smooth texture moved by ``PLANES_SHIFT`` (median
+    flow of the interior within 0.05 px of it), timed; and on the
+    fixture's VIL-100 frames, against the CPU's run on the same decoded
+    bytes (median and 99.9th percentile of |diff| within
+    ``PLANES_FARNEBACK``). (b) A copy of the fixture's VIL-100 tree gets
+    lane masks written by ``write_mask`` (indexed PNGs) and flow JPEGs by
+    ``generate_flow_jpgs`` (nvJPEG), timed a frame. (c) The copy read back
+    by the reader on the card with ``load_seg`` and ``load_flow``: in test
+    mode (ms a frame with and without the planes) and in train mode with
+    ``TrainAugment`` at p_hflip = p_affine = 1; against the same readers
+    on the CPU given the card's decoded bytes: masks equal, flow within
+    1e-6 (the same bytes and ops), frames within the augmentation's gate;
+    the test mode's flow against the CPU's own Farneback flow, quantized
+    and dequantized without a JPEG, within ``JPEG_ROUND_TRIP_LEVELS`` + 1
+    levels. (d) ``SegDecoder`` on the stacked FPN levels of
+    ``vil100_config()`` (the seeded model's encoder on the read frames;
+    3 x 64 channels at 48x96, upsampled to 384x768, 9 classes) and
+    ``WarpModel`` on the 64-channel level 0 with the read flow: card
+    against CPU within 1e-4 of max |CPU| (TF32 off). (e) J and F of the
+    decoder's argmax masks against the read masks, equal to the CPU's on
+    the same masks; the CPU's own argmax differs only where its top two
+    logits are within 1e-4."""
+    import shutil as sh
+
+    from phnet_torch.config import vil100_config
+    from phnet_torch.data.flow import (JPEG_ROUND_TRIP_LEVELS, BOUND,
+                                       dense_two_frame_flow,
+                                       dequantize_flow, generate_flow_jpgs)
+    from phnet_torch.data.native_loader import ClipDecoder
+    from phnet_torch.data.transforms import resize_linear_f32
+    from phnet_torch.models import PHNet
+    from phnet_torch.models.seg_decoder import resize_bilinear
+    from phnet_torch.utils.masks import write_mask
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    key = ("planes", PLANES_SEED)
+    feeds = []
+
+    def feed(payload):
+        if CPU_REFS is not None:
+            CPU_REFS.feed(torch, key, payload)
+        else:
+            feeds.append(payload)
+
+    # (a) Farneback at 1080p on a known motion, then the fixture's frames
+    prev, nxt = shifted_texture(torch, 1080, 1920, PLANES_SHIFT, dev)
+    dense_two_frame_flow(prev, nxt)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flow = dense_two_frame_flow(prev, nxt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    farneback_ms = 1e3 * float(np.median(times))
+    inner = flow[64:-64, 64:-64].reshape(-1, 2)
+    med = inner.median(0).values.cpu().numpy()
+    if (not flow.is_cuda or np.abs(med - np.array(PLANES_SHIFT)).max()
+            > 0.05):
+        raise AssertionError(f"[planes] Farneback on the 1080p pair: median "
+                             f"{med}, the motion {PLANES_SHIFT}")
+    decode = ClipDecoder(dev)
+    src = os.path.join(FIXTURE, "VIL100")
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = os.path.join(tmp, "data")
+        root = os.path.join(tree, "VIL100")
+        for sub in ("JPEGImages", "Json", "data"):
+            sh.copytree(os.path.join(src, sub), os.path.join(root, sub))
+        videos = sorted(os.listdir(os.path.join(root, "JPEGImages")))
+        names = {v: sorted(f[:-4] for f in os.listdir(
+            os.path.join(root, "JPEGImages", v))) for v in videos}
+        jpgs = {v: [os.path.join(root, "JPEGImages", v, n + ".jpg")
+                    for n in names[v]] for v in videos}
+        u8 = {v: decode.u8(jpgs[v]) for v in videos}
+        feed({"frames": {v: u8[v].cpu() for v in videos}})
+        card_flows = {}
+        for v in videos:
+            for t in range(len(names[v])):
+                card_flows[(v, t)] = dense_two_frame_flow(
+                    u8[v][max(t - 1, 0)], u8[v][t])
+        # (b) the written files
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_frames = 0
+        for v in videos:
+            for n in names[v]:
+                h, w = u8[v].shape[1:3]
+                write_mask(lane_mask(os.path.join(root, "Json", v,
+                                                  n + ".jpg.json"), h, w),
+                           os.path.join(root, "Annotations", v, n + ".png"))
+            generate_flow_jpgs(os.path.join(root, "JPEGImages", v),
+                               os.path.join(root, "Flow", v), names[v],
+                               device=dev)
+            n_frames += len(names[v])
+        torch.cuda.synchronize()
+        write_ms = 1e3 * (time.perf_counter() - t0) / n_frames
+        # (c) read back on the card
+        readers = planes_readers(torch, tree, None)
+        plain, plain_s, _ = timed_clips(torch, readers["test"])
+        test, planes_s, _ = timed_clips(torch, readers["test planes"])
+        train = readers["train planes"][0]
+        for c in test + [train]:
+            if (not c["seg"].is_cuda or c["seg"].dtype != torch.uint8
+                    or tuple(c["seg"].shape) != (4, 384, 768)
+                    or tuple(c["flow"].shape) != (4, 384, 768, 2)
+                    or not bool(torch.isfinite(c["flow"]).all())):
+                raise AssertionError(f"[planes] clip {c['name']}: seg "
+                                     f"{tuple(c['seg'].shape)} on "
+                                     f"{c['seg'].device}, flow "
+                                     f"{tuple(c['flow'].shape)}")
+        flow_files = sorted(glob.glob(os.path.join(root, "Flow", "*",
+                                                   "*.jpg")))
+        gray = dict(zip(flow_files, decode.gray(flow_files).cpu()))
+        # (d) the models on the read clips
+        model = PHNet(vil100_config().model, device=dev)
+        model.load_state_dict(state_dict)
+        with torch.no_grad():
+            levels = [lv[:, 0] for lv in model.encode(test[0]["frames"][None])]
+        hh, ww = levels[0].shape[1:3]
+        feats = torch.cat([levels[0]] + [resize_bilinear(lv, hh, ww)
+                                         for lv in levels[1:]], -1)
+        flow_small = torch.stack([resize_linear_f32(f, hh, ww)
+                                  for f in test[0]["flow"]])
+        logits, warped = planes_models(torch, feats, levels[0], flow_small)
+        pred = logits.argmax(-1)
+        seg = test[0]["seg"]
+        metric = planes_metric(pred, seg)
+        feed({"tree": tree, "u8": {p: f.cpu() for v in videos
+                                   for p, f in zip(jpgs[v], u8[v])},
+              "gray": gray, "feats": feats.cpu(), "level0": levels[0].cpu(),
+              "flow_small": flow_small.cpu(), "seg": seg.cpu()})
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t_phase
+        ref = (cpu_side(torch, key) if CPU_REFS is not None
+               else cpu_planes(torch, PLANES_SEED, iter(feeds).__next__))
+    # the gates
+    fb = []
+    for k, f in card_flows.items():
+        d = (f.cpu() - ref["flows"][k]).abs().reshape(-1)
+        fb.append((float(d.median()), float(d.quantile(0.999))))
+    fb_med, fb_p999 = max(x[0] for x in fb), max(x[1] for x in fb)
+    if fb_med > PLANES_FARNEBACK["median"] or \
+            fb_p999 > PLANES_FARNEBACK["p999"]:
+        raise AssertionError(f"[planes] Farneback card vs CPU: median "
+                             f"{fb_med}, 99.9th percentile {fb_p999} px")
+    level = 2 * BOUND / 255.0
+    worst = {"seg": 0, "flow": 0.0, "frames": 0.0, "levels": 0.0}
+    for got, want in zip(test + [train], ref["clips"]["test"]
+                         + [ref["clips"]["train"]]):
+        if got["frame_names"] != want["frame_names"] or not torch.equal(
+                got["seg"].cpu(), want["seg"]):
+            raise AssertionError(f"[planes] clip {got['name']}: masks or "
+                                 f"frames differ from the CPU's")
+        worst["flow"] = max(worst["flow"], float(
+            (got["flow"].cpu() - want["flow"]).abs().max()))
+        worst["frames"] = max(worst["frames"], float(
+            (got["frames"].cpu() - want["frames"]).abs().max()))
+    cfg = vil100_config().model
+    for c in test:
+        v = c["name"]
+        oh, ow = u8[v].shape[1:3]
+        size = torch.tensor([ow, oh], dtype=torch.float32)
+        for t in range(len(c["frame_names"])):
+            u, vv = ref["planes"][(v, t)]
+            flow = dequantize_flow(u, vv, oh, ow)
+            want = resize_linear_f32(flow[c["cut"]:], cfg.img_h, cfg.img_w)
+            lv = ((c["flow"][t].cpu() - want).abs() * size / level).max()
+            worst["levels"] = max(worst["levels"], float(lv))
+    if (worst["flow"] > 1e-6 or worst["frames"] > AUG_MAX_LEVELS / 255.0
+            / 0.225 or worst["levels"] > JPEG_ROUND_TRIP_LEVELS + 1 + 1e-3):
+        raise AssertionError(f"[planes] read-back planes: {worst}")
+    model_err = {}
+    for name, got, want in (("seg_decoder", logits, ref["logits"]),
+                            ("warp_model", warped, ref["warped"])):
+        err = float((got.cpu() - want).abs().max())
+        model_err[name] = err / float(want.abs().max())
+        if model_err[name] > 1e-4:
+            raise AssertionError(f"[planes] {name}: card {err} from the CPU")
+    cpu_metric = planes_metric(pred.cpu(), seg.cpu())
+    flips = pred.cpu() != ref["pred"]
+    near = int((flips & (ref["gap"] > 1e-4)).sum())
+    if cpu_metric != metric or near or not metric:
+        raise AssertionError(f"[planes] J&F card {metric}, CPU {cpu_metric}"
+                             f"; {near} argmax flips with a gap > 1e-4")
+    jm = np.mean([j for j, _ in metric.values()])
+    fm = np.mean([f for _, f in metric.values()])
+    print(f"[planes] Farneback on the card: 1080x1920 pair "
+          f"{farneback_ms:.1f} ms (median of 3, synchronized wall), motion "
+          f"{PLANES_SHIFT} found as {tuple(np.round(med, 4))}; VIL frames "
+          f"card vs CPU median {fb_med:.3g} px, 99.9th percentile "
+          f"{fb_p999:.3g} px; written: masks + flow JPEGs (nvJPEG) "
+          f"{write_ms:.1f} ms a frame; reader at 768x384 test mode "
+          f"{1e3 * plain_s:.2f} ms a frame without planes, "
+          f"{1e3 * planes_s:.2f} ms with; read back against the CPU on the "
+          f"card's bytes: masks equal, flow within {worst['flow']:.3g}, "
+          f"frames within {worst['frames']:.3g}; against the CPU's own "
+          f"Farneback without a JPEG {worst['levels']:.3f} levels (<= "
+          f"{JPEG_ROUND_TRIP_LEVELS + 1}); SegDecoder "
+          f"{model_err['seg_decoder']:.3g}, WarpModel "
+          f"{model_err['warp_model']:.3g} of max |CPU| "
+          f"(<= 1e-4); J&F over {len(metric)} lane ids J {jm:.4f} F "
+          f"{fm:.4f} (random weights), equal to the CPU's, "
+          f"{int(flips.sum())} argmax flips all at gaps <= 1e-4; card "
+          f"{card_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    return {"farneback_ms": farneback_ms, "write_ms": write_ms,
+            "read_ms": 1e3 * plain_s, "read_planes_ms": 1e3 * planes_s,
+            "card_s": card_s}
+
+
 def lap(t0, tag):
     """Print the seconds since the script started, after ``tag``."""
     print(f"[time] {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3821,14 +4261,17 @@ CPU_JOBS = (
     ("train", PROPAGATE, 2, None),
     ("train_bf16", PROPAGATE, False, 4, (5, 6)),
     *(("train", VIL, 2, b)  # 39
-      for b in ("revcol", "resnet50", "groupnorm")))
+      for b in ("revcol", "resnet50", "groupnorm")),
+    ("planes", PLANES_SEED))  # 45
 
 
 def run_phases(torch, card, t0):
-    """Phases 2-44. The phases that need nothing of the CPU's run first
+    """Phases 2-45. The phases that need nothing of the CPU's run first
     and those whose checks wait for :data:`CPU_JOBS` later (21-22, 29,
     39), so that the background process is ahead of them; the command
-    lines' subprocesses (30-36, 41, 43) run last, when it has ended.
+    lines' subprocesses (30-36, 41, 43) run last, when it has ended, and
+    then phase 45, whose CPU side the background process computes from
+    what the card hands it while the card goes on.
     Returns the numbers that the ``kernels`` line and the summaries
     read."""
     from phnet_torch.config import vil100_config
@@ -3925,11 +4368,13 @@ def run_phases(torch, card, t0):
     distributed = phase_distributed_training(torch, card)
     model_axis = phase_model_axis_training(torch, card)
     lap(t0, "phases 41, 43")
+    planes = phase_planes(torch, card, state_dict)
+    lap(t0, "phase 45")
     return (nms, chain, launches, w8, launches_w8, nms_ol, ms_products,
             w8_ms, ol, training, chain_bf16, w8_bf16x, bf16, ol_f32_k2,
             training_bf16, training_ol, nms_v3, v3, ms_bf16, train_heads,
             train_cli, backbones, backbone_pipe, train_backbones,
-            distributed, mesh_serving, model_axis, exported)
+            distributed, mesh_serving, model_axis, exported, planes)
 
 
 def main() -> int:
@@ -3964,7 +4409,7 @@ def main() -> int:
      training, chain_bf16, w8_bf16x, bf16, ol_f32_k2, training_bf16,
      training_ol, nms_v3, v3, ms_bf16, train_heads, train_cli, backbones,
      backbone_pipe, train_backbones, distributed, mesh_serving, model_axis,
-     exported) = got
+     exported, planes) = got
 
     w8_ms_frame = stage_sum(w8_ms, 4, [name for name, _, _ in ms_products])
     single, multi = "openlane_config", "openlane_multiscale_config"

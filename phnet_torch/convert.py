@@ -123,6 +123,15 @@ def plan(shapes: Mapping) -> Dict[str, Tuple[Tuple[str, ...], Tuple[int, ...]]]:
     return out
 
 
+def convert_module(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``variables`` of a module that stands alone (``SegDecoder``,
+    ``WarpModel``: every leaf under ``params``) -> its ``state_dict``:
+    ``conv/kernel`` HWIO -> ``conv.weight`` OIHW, ``conv/bias``, and
+    ``bn/{weight,bias,running_mean,running_var}`` as they are (no path
+    rule touches their names)."""
+    return convert(variables["params"])
+
+
 def convert(variables: Mapping) -> Dict[str, torch.Tensor]:
     """flax ``variables`` (nested dicts of numpy arrays) -> the port's
     ``state_dict`` (float32 CPU tensors)."""

@@ -1,6 +1,7 @@
 """Data of the port: synthetic clips, the clip loader, and (in their own
-modules) the VIL-100 and OpenLane-V readers, their decoders and
-``transforms.TrainAugment``."""
+modules) the VIL-100 and OpenLane-V readers, their decoders,
+``transforms.TrainAugment``, the PNG codec (``png``) and the flow planes
+(``flow``)."""
 from .loader import ClipLoader, collate_clips
 from .synthetic import SyntheticVideoDataset, synthetic_clip
 

@@ -7,11 +7,13 @@ epoch-seeded shuffle (``set_epoch``), a background thread that prepares
 up to ``prefetch`` batches ahead, and collation to ``[B, T, ...]``.
 
 Clips may hold their frames as tensors on the card (the readers' train
-mode); the batch's frames then stay there. The worker thread makes them
-on a stream of its own and hands each batch over with an event that the
-consumer's stream waits for, so that the step never reads a frame before
-it is written; the frames are recorded on the consumer's stream for the
-caching allocator. An exception in the worker is raised in the consumer
+mode), and their segmentation and flow planes (``seg``, ``flow``, which
+ride in ``infos`` as in the JAX loader); these then stay there. The
+worker thread makes them on a stream of its own and hands each batch over
+with an event that the consumer's stream waits for, so that the step
+never reads a frame or a plane before it is written; each of the batch's
+card tensors is recorded on the consumer's stream for the caching
+allocator. An exception in the worker is raised in the consumer
 (the JAX loader's worker ends the epoch early instead, its ``finally``
 hiding the error).
 """
@@ -38,6 +40,14 @@ def collate_clips(samples: Sequence[Dict]) -> Dict:
     out["infos"] = [{k: s[k] for k in s if k not in ("frames", "labels")}
                     for s in samples]
     return out
+
+
+def _tensors(batch: Dict):
+    """The batch's tensors: its frames and its clips' tensor fields."""
+    if torch.is_tensor(batch["frames"]):
+        yield batch["frames"]
+    for info in batch["infos"]:
+        yield from (v for v in info.values() if torch.is_tensor(v))
 
 
 class _Failure:
@@ -142,12 +152,12 @@ class ClipLoader:
                 if isinstance(item, _Failure):
                     raise item.exc
                 batch, ready = item
-                frames = batch["frames"]
-                if ready is not None and torch.is_tensor(frames) \
-                        and frames.is_cuda:
-                    consumer = torch.cuda.current_stream(frames.device)
-                    consumer.wait_event(ready)
-                    frames.record_stream(consumer)
+                if ready is not None:
+                    on_card = [t for t in _tensors(batch) if t.is_cuda]
+                    for dev in {t.device for t in on_card}:
+                        torch.cuda.current_stream(dev).wait_event(ready)
+                    for t in on_card:
+                        t.record_stream(torch.cuda.current_stream(t.device))
                 yield batch
         finally:
             closed.set()

@@ -8,11 +8,14 @@
 // per-frame loop; loaded with ctypes (phnet_torch/data/native_loader.py),
 // built with g++ and -ljpeg by phnet_torch/ops/_build.py.
 //
-// decode_clip_rgb_u8 and jpeg_planes are the port's own: the same libjpeg
-// decode as uint8 RGB, uncropped (the reference that the card's nvJPEG
-// decode, nvjpeg_decode.cpp, is held against), and the component planes
-// before upsampling and colour conversion (which the port's PyTorch
-// conversion, native_loader.ycc_to_rgb, is held against).
+// decode_clip_rgb_u8, jpeg_planes and encode_gray_jpeg are the port's own:
+// the same libjpeg decode as uint8 RGB, uncropped (the reference that the
+// card's nvJPEG decode, nvjpeg_decode.cpp, is held against), the component
+// planes before upsampling and colour conversion (which the port's PyTorch
+// conversion, native_loader.ycc_to_rgb, is held against; a gray JPEG's one
+// plane is what cv2.imread(..., IMREAD_GRAYSCALE) reads), and the gray
+// JPEG writer of the VIL-100 flow planes (phnet_torch/data/flow.py), with
+// cv2.imwrite's settings.
 //
 // Resize follows cv2.INTER_LINEAR's geometry: src = (dst + 0.5)*scale - 0.5
 // with edge clamping (float arithmetic; cv2's 11-bit fixed point agrees to
@@ -252,6 +255,44 @@ int decode_clip_rgb_u8(const char** paths, int n, int h, int w,
                 img.size());
   }
   return failed;
+}
+
+// Write the gray image gray[0:h*w) (rows of w bytes) to `path` as a
+// baseline one-component JPEG at `quality`, as cv2.imwrite writes one:
+// libjpeg's defaults, jpeg_set_quality(quality, TRUE), no optimized
+// Huffman tables. Returns 0 on success, 1 if the file cannot be opened, 2
+// if libjpeg fails.
+int encode_gray_jpeg(const char* path, const unsigned char* gray, int h,
+                     int w, int quality) {
+  FILE* f = std::fopen(path, "wb");
+  if (!f) return 1;
+  jpeg_compress_struct cinfo;
+  JpegErr jerr;
+  cinfo.err = jpeg_std_error(&jerr.mgr);
+  jerr.mgr.error_exit = jpeg_err_exit;
+  if (setjmp(jerr.jb)) {
+    jpeg_destroy_compress(&cinfo);
+    std::fclose(f);
+    return 2;
+  }
+  jpeg_create_compress(&cinfo);
+  jpeg_stdio_dest(&cinfo, f);
+  cinfo.image_width = static_cast<JDIMENSION>(w);
+  cinfo.image_height = static_cast<JDIMENSION>(h);
+  cinfo.input_components = 1;
+  cinfo.in_color_space = JCS_GRAYSCALE;
+  jpeg_set_defaults(&cinfo);
+  jpeg_set_quality(&cinfo, quality, TRUE);
+  jpeg_start_compress(&cinfo, TRUE);
+  while (cinfo.next_scanline < cinfo.image_height) {
+    JSAMPROW row = const_cast<JSAMPROW>(
+        gray + static_cast<size_t>(cinfo.next_scanline) * w);
+    jpeg_write_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_compress(&cinfo);
+  jpeg_destroy_compress(&cinfo);
+  std::fclose(f);
+  return 0;
 }
 
 }  // extern "C"

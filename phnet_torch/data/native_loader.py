@@ -16,6 +16,13 @@ no image through OpenCV or PIL):
   with the C++ loader's arithmetic, all in PyTorch on the card
   (:func:`decode_clip_card`). Only the IDCT is nvJPEG's own.
 
+A gray JPEG (the VIL-100 flow planes) reads to its one plane
+(:meth:`ClipDecoder.gray`: libjpeg's, or nvJPEG's Y plane on the card),
+which is what ``cv2.imread(..., IMREAD_GRAYSCALE)`` reads; and
+:class:`GrayJpegWriter` writes one, with libjpeg on the CPU
+(``encode_gray_jpeg``, ``cv2.imwrite``'s settings) and nvJPEG's encoder
+on the card (:class:`NvJpegEncoder`).
+
 The libraries are built with ``g++`` at first use
 (``phnet_torch.ops._build``); a failed build, or a frame that does not
 decode, raises.
@@ -50,6 +57,9 @@ def _clip_lib() -> ctypes.CDLL:
     lib.jpeg_planes.restype = ctypes.c_int
     lib.jpeg_planes.argtypes = [ctypes.c_char_p,
                                 ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    lib.encode_gray_jpeg.restype = ctypes.c_int
+    lib.encode_gray_jpeg.argtypes = [ctypes.c_char_p, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -115,6 +125,20 @@ def jpeg_planes(path: str) -> List[np.ndarray]:
         planes.append(buf[at:at + h * w].reshape(h, w))
         at += h * w
     return planes
+
+
+def write_gray_jpeg(path: str, plane: np.ndarray, quality: int = 95) -> str:
+    """libjpeg on the host: uint8 [h, w] ``plane`` to a baseline gray JPEG
+    at ``quality`` (``cv2.imwrite``'s settings). Raises when it fails."""
+    plane = np.ascontiguousarray(plane, np.uint8)
+    if plane.ndim != 2:
+        raise ValueError(f"a gray plane is [h, w], got {plane.shape}")
+    rc = _clip_lib().encode_gray_jpeg(str(path).encode(), plane.ctypes.data,
+                                      plane.shape[0], plane.shape[1],
+                                      int(quality))
+    if rc:
+        raise IOError(f"failed to write {path} (rc {rc})")
+    return path
 
 
 def _fix(x: float) -> int:
@@ -302,7 +326,15 @@ class NvJpegDecoder:
                               f"{shapes}: {p}")
         return datas, shapes
 
-    def decode(self, paths: Sequence[str], device=None) -> torch.Tensor:
+    def decode_gray(self, paths: Sequence[str], device=None
+                    ) -> torch.Tensor:
+        """JPEG files of one size -> [n, h, w] uint8 on ``device``: each
+        one's Y plane (a gray JPEG's one plane), on its current stream.
+        Returns once the decode has finished."""
+        return self.decode(paths, device, gray=True)
+
+    def decode(self, paths: Sequence[str], device=None, gray: bool = False
+               ) -> torch.Tensor:
         """JPEG files of one size -> [n, h, w, 3] uint8 RGB on ``device``
         (a CUDA device; the current one by default), on its current
         stream. Returns once the decode has finished."""
@@ -311,8 +343,8 @@ class NvJpegDecoder:
             raise ValueError("nvJPEG decodes on a CUDA device")
         datas, shapes = self._read(paths)
         with torch.cuda.device(device):
-            out = torch.empty((len(datas), *shapes[0], 3), dtype=torch.uint8,
-                              device=device)
+            shape = (len(datas), *shapes[0]) + (() if gray else (3,))
+            out = torch.empty(shape, dtype=torch.uint8, device=device)
             stream = torch.cuda.current_stream(device)
             planes = [torch.empty(s, dtype=torch.uint8, device=device)
                       for s in shapes]
@@ -326,10 +358,116 @@ class NvJpegDecoder:
                 if status:
                     raise IOError(f"nvJPEG failed to decode frame {i}: "
                                   f"{paths[i]} (status {status})")
-                ycc_to_rgb(planes, out=out[i])
+                if gray:
+                    out[i].copy_(planes[0])
+                else:
+                    ycc_to_rgb(planes, out=out[i])
             # the host buffers in ``datas`` must outlive the decode
             stream.synchronize()
         return out
+
+
+class NvJpegEncoder:
+    """nvJPEG's encoder of gray JPEGs at one quality on the card
+    (``native/nvjpeg_decode.cpp``): :meth:`encode` turns a uint8 [h, w]
+    plane in device memory into a baseline one-component JPEG's bytes.
+    Release it with :meth:`close` (or ``with``)."""
+
+    def __init__(self, quality: int = 95, device=None):
+        from ..ops import _build
+
+        lib = _build.load("nvjpeg_decode")
+        vp, sz = ctypes.c_void_p, ctypes.c_size_t
+        lib.nvj_encoder_create.restype = ctypes.c_int
+        lib.nvj_encoder_create.argtypes = [ctypes.c_int, vp,
+                                           ctypes.POINTER(vp)]
+        lib.nvj_encoder_destroy.restype = None
+        lib.nvj_encoder_destroy.argtypes = [vp]
+        lib.nvj_encoder_encode.restype = ctypes.c_int
+        lib.nvj_encoder_encode.argtypes = [vp, vp, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, vp,
+                                           ctypes.POINTER(sz)]
+        lib.nvj_encoder_fetch.restype = ctypes.c_int
+        lib.nvj_encoder_fetch.argtypes = [vp, ctypes.c_char_p,
+                                          ctypes.POINTER(sz)]
+        self._lib = lib
+        self.quality = int(quality)
+        self.device = torch.device("cuda" if device is None else device)
+        handle = vp()
+        stream = torch.cuda.current_stream(self.device)
+        status = lib.nvj_encoder_create(self.quality, stream.cuda_stream,
+                                        ctypes.byref(handle))
+        if status:
+            raise RuntimeError(f"nvJPEG encoder initialization failed "
+                               f"(status {status})")
+        self._handle = handle
+
+    def close(self):
+        if self._handle is not None:
+            self._lib.nvj_encoder_destroy(self._handle)
+            self._handle = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        self.close()
+
+    def encode(self, plane: torch.Tensor) -> bytes:
+        """The JPEG bytes of the uint8 [h, w] CUDA tensor ``plane``,
+        encoded on its device's current stream."""
+        if self._handle is None:
+            raise RuntimeError("encoder is closed")
+        if (plane.dtype != torch.uint8 or plane.dim() != 2
+                or not plane.is_cuda):
+            raise ValueError("nvJPEG encodes a uint8 [h, w] CUDA tensor")
+        plane = plane.contiguous()
+        h, w = plane.shape
+        n = ctypes.c_size_t()
+        with torch.cuda.device(plane.device):
+            stream = torch.cuda.current_stream(plane.device)
+            status = self._lib.nvj_encoder_encode(
+                self._handle, plane.data_ptr(), w, w, h, stream.cuda_stream,
+                ctypes.byref(n))
+            if status:
+                raise IOError(f"nvJPEG failed to encode a {h}x{w} plane "
+                              f"(status {status})")
+            stream.synchronize()
+        buf = ctypes.create_string_buffer(n.value)
+        status = self._lib.nvj_encoder_fetch(self._handle, buf,
+                                             ctypes.byref(n))
+        if status:
+            raise IOError(f"nvJPEG failed to hand over the JPEG (status "
+                          f"{status})")
+        return buf.raw[:n.value]
+
+
+class GrayJpegWriter:
+    """Gray JPEG files from uint8 [h, w] planes on ``device`` (None: the
+    card): :func:`write_gray_jpeg` (libjpeg) on the CPU, an
+    :class:`NvJpegEncoder` (made at first use, one a quality) on the
+    card. A failed encode raises."""
+
+    def __init__(self, device=None):
+        from ..device import resolve_device
+
+        self.device = resolve_device(device)
+        self._encoders = {}
+
+    def write(self, path: str, plane, quality: int = 95) -> str:
+        if self.device.type == "cpu":
+            plane = plane.cpu().numpy() if torch.is_tensor(plane) else plane
+            return write_gray_jpeg(path, plane, quality)
+        if quality not in self._encoders:
+            self._encoders[quality] = NvJpegEncoder(quality, self.device)
+        plane = torch.as_tensor(plane).to(self.device)
+        data = self._encoders[quality].encode(plane)
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
 
 
 def decode_clip_card(decoder: NvJpegDecoder, paths: Sequence[str],
@@ -373,6 +511,16 @@ class ClipDecoder:
         if self.device.type == "cpu":
             return torch.from_numpy(decode_clip_u8(paths))
         return self._card().decode(paths, self.device)
+
+    def gray(self, paths: Sequence[str]) -> torch.Tensor:
+        """JPEG files of one size read to gray as ``cv2.imread(...,
+        IMREAD_GRAYSCALE)`` reads them: each one's Y plane (a gray JPEG's
+        one plane), [n, h, w] uint8 on the decoder's device (libjpeg's
+        :func:`jpeg_planes` on the CPU, nvJPEG on the card)."""
+        if self.device.type == "cpu":
+            return torch.from_numpy(np.stack([jpeg_planes(p)[0]
+                                              for p in paths]))
+        return self._card().decode_gray(paths, self.device)
 
     def _card(self) -> NvJpegDecoder:
         if self._nvjpeg is None:

@@ -38,8 +38,21 @@ PyTorch, and is bit-equal to it on the tests' images
 A fused multiply-add ``fma(a, b, c)`` of float32 operands is computed in
 float64 and rounded once to float32 (the product is exact in float64; the
 sum is double-rounded, which can move a result one float32 ulp in rare
-cases). The segmentation and flow planes that the JAX class carries along
-are not ported yet.
+cases).
+
+The segmentation and flow planes ride the geometric steps only (the
+resizes, the flip, the affine) and draw nothing, so that the image and
+lanes come out the same with planes as without:
+
+* resize: the mask with ``INTER_NEAREST`` (:func:`resize_nearest`:
+  ``floor(d * in / out)``, not half-pixel), the flow with the float
+  ``INTER_LINEAR`` (:func:`resize_linear_f32`: float32 weights, not the
+  uint8 image's 11-bit ones);
+* flip: mirrored, the flow's u **not** negated (imgaug flips heatmaps so,
+  and the JAX class keeps it);
+* affine: the mask with ``INTER_NEAREST`` (:func:`warp_affine_nearest`:
+  the image's float source positions, rounded), the flow with OpenCV's
+  fixed-point remap (:func:`warp_affine_f32`).
 """
 
 from __future__ import annotations
@@ -147,6 +160,68 @@ def resize_with_lanes(img: torch.Tensor, lanes: Lanes, out_h: int,
     h, w = img.shape[:2]
     return resize_u8(img, out_h, out_w), scale_lanes(lanes, h, w, out_h,
                                                      out_w)
+
+
+def _linear_taps(n_out: int, n_in: int, clamp_weights: bool):
+    """cv2 ``INTER_LINEAR``'s float taps along one axis: offsets
+    ``float32((d + 0.5) * scale - 0.5)`` (scale = 1 / (n_out / n_in)),
+    floored; columns outside [0, n_in - 1) take weights (1, 0)
+    (``clamp_weights``), rows keep theirs and read clamped rows."""
+    scale = 1.0 / (n_out / n_in)
+    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(_F32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(_F32)).astype(_F32)
+    if clamp_weights:
+        f[(s < 0) | (s >= n_in - 1)] = 0
+        s = np.clip(s, 0, n_in - 1)
+    return (np.clip(s, 0, n_in - 1), np.clip(s + 1, 0, n_in - 1),
+            (_F32(1) - f).astype(_F32), f)
+
+
+def resize_linear_f32(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``cv2.resize(x, (out_w, out_h), interpolation=INTER_LINEAR)`` of a
+    float32 [H, W] or [H, W, C] array: each source row resized along x
+    (``S[i] a0 + S[i + 1] a1``), then the rows blended (``R0 b0 + R1
+    b1``), in float32 (bit-equal to OpenCV 5.0 on the tests' sizes). An
+    exact halving of both sides is OpenCV's 2 x 2 mean, ``((p00 + p01) +
+    (p10 + p11)) * 0.25`` for one channel, ``(((p00 + p01) + p10) + p11)
+    * 0.25`` for more; the same size is a copy."""
+    h, w = x.shape[:2]
+    if (out_h, out_w) == (h, w):
+        return x.clone()
+    dev = x.device
+    if h == 2 * out_h and w == 2 * out_w:
+        p00, p01 = x[0::2, 0::2], x[0::2, 1::2]
+        p10, p11 = x[1::2, 0::2], x[1::2, 1::2]
+        if x.dim() == 2:  # OpenCV's vector loop; its scalar loop otherwise
+            return ((p00 + p01) + (p10 + p11)) * 0.25
+        return (((p00 + p01) + p10) + p11) * 0.25
+    x0, x1, a0, a1 = _linear_taps(out_w, w, True)
+    y0, y1, b0, b1 = _linear_taps(out_h, h, False)
+    extra = (None,) * (x.dim() - 2)
+    a0, a1 = (torch.from_numpy(a).to(dev)[(slice(None),) + extra]
+              for a in (a0, a1))
+    b0, b1 = (torch.from_numpy(b).to(dev)[(slice(None), None) + extra]
+              for b in (b0, b1))
+    x0, x1, y0, y1 = (torch.from_numpy(i).to(dev) for i in (x0, x1, y0, y1))
+    rows = x.index_select(0, torch.cat([y0, y1]))
+    hr = rows[:, x0] * a0 + rows[:, x1] * a1
+    return hr[:out_h] * b0 + hr[out_h:] * b1
+
+
+def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``cv2.resize(x, (out_w, out_h), interpolation=INTER_NEAREST)`` of an
+    [H, W, ...] array: output d reads source ``floor(d * (1 / (out /
+    in)))``, clamped (not half-pixel; the segmentation plane's resize)."""
+    h, w = x.shape[:2]
+    dev = x.device
+
+    def src(n_out, n_in):
+        s = np.floor(np.arange(n_out) * (1.0 / (n_out / n_in)))
+        return torch.from_numpy(np.minimum(s, n_in - 1).astype(np.int64)
+                                ).to(dev)
+
+    return x.index_select(0, src(out_h, h)).index_select(1, src(out_w, w))
 
 
 # --- photometric ops --------------------------------------------------------
@@ -268,9 +343,10 @@ def rotation_matrix(center: Tuple[float, float], angle: float,
                      [-be, al, be * cx + (1 - al) * cy]])
 
 
-def _inverse_affine(m: np.ndarray) -> np.ndarray:
+def _inverse_affine(m: np.ndarray, cast: bool = True) -> np.ndarray:
     """warpAffine's inversion of a forward [2, 3] matrix, in float64, to
-    six float32 coefficients (m0 m1 m2 / m3 m4 m5)."""
+    six float32 coefficients (m0 m1 m2 / m3 m4 m5; float64 without
+    ``cast``)."""
     m = np.asarray(m, np.float64).reshape(-1).copy()
     d = m[0] * m[4] - m[1] * m[3]
     d = 1.0 / d if d != 0 else 0.0
@@ -279,7 +355,7 @@ def _inverse_affine(m: np.ndarray) -> np.ndarray:
     b1 = -m[0] * m[2] - m[1] * m[5]
     b2 = -m[3] * m[2] - m[4] * m[5]
     m[2], m[5] = b1, b2
-    return m.astype(_F32)
+    return m.astype(_F32) if cast else m
 
 
 def _fma_np(a, b, c):
@@ -349,6 +425,70 @@ def warp_affine(img: torch.Tensor, m: np.ndarray) -> torch.Tensor:
     bot = _fma(ax, p11 - p10, p10)
     out = _fma(ay, bot - top, top)
     return torch.round(out).clamp_(0, 255).to(torch.uint8)
+
+
+def warp_affine_nearest(plane: torch.Tensor, m: np.ndarray) -> torch.Tensor:
+    """``cv2.warpAffine(plane, m, (W, H), flags=INTER_NEAREST)`` of an
+    [H, W] plane (the segmentation mask), ``m`` the forward [2, 3]
+    matrix: source positions as :func:`warp_affine` computes them,
+    rounded half to even; positions outside the image read 0 (bit-equal
+    to OpenCV 5.0, ``tests/test_torch_planes.py``)."""
+    h, w = plane.shape[:2]
+    dev = plane.device
+    m = _inverse_affine(m)
+    ys = np.arange(h, dtype=_F32)
+    row_x = _on((ys * m[1]).astype(_F32) + m[2], dev)[:, None]
+    row_y = _on((ys * m[4]).astype(_F32) + m[5], dev)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None]
+    ix = torch.round(_fma(xs, float(m[0]), row_x)).long()
+    iy = torch.round(_fma(xs, float(m[3]), row_y)).long()
+    ok = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    px = plane[iy.clamp(0, h - 1), ix.clamp(0, w - 1)]
+    return torch.where(ok, px, torch.zeros((), dtype=plane.dtype, device=dev))
+
+
+_AB_BITS, _INTER_BITS = 10, 5  # OpenCV's warpAffine / remap fixed point
+
+
+def warp_affine_f32(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
+    """``cv2.warpAffine(x, m, (W, H))`` (``INTER_LINEAR``, zeros outside)
+    of a float32 [H, W, C] array (the flow plane), ``m`` the forward
+    [2, 3] matrix. OpenCV 5.0 runs a float image of two channels through
+    its older remap path: the inverse in float64, source positions in
+    fixed point (``AB_BITS`` 10, then 1/32 of a pixel: ``(rint((m1 y +
+    m2) 1024) + 16 + rint(m0 x 1024)) >> 5``), the 32 x 32 table of
+    float32 bilinear weights ``(1 - u, u) x (1 - v, v)``, the four taps
+    summed left to right, taps outside the image 0 (bit-equal to OpenCV
+    5.0, ``tests/test_torch_planes.py``)."""
+    h, w = x.shape[:2]
+    dev = x.device
+    m = _inverse_affine(m, cast=False)
+    scale = 1 << _AB_BITS
+    half = scale // (1 << _INTER_BITS) // 2
+    shift = _AB_BITS - _INTER_BITS
+    xs, ys = np.arange(w), np.arange(h)
+    ad, bd = np.rint(m[0] * xs * scale), np.rint(m[3] * xs * scale)
+    x0 = np.rint((m[1] * ys + m[2]) * scale) + half
+    y0 = np.rint((m[4] * ys + m[5]) * scale) + half
+    fx = _on(((x0[:, None] + ad[None]).astype(np.int64)) >> shift, dev)
+    fy = _on(((y0[:, None] + bd[None]).astype(np.int64)) >> shift, dev)
+    mask = (1 << _INTER_BITS) - 1
+    ix, iy = fx >> _INTER_BITS, fy >> _INTER_BITS
+    step = _F32(1.0 / (1 << _INTER_BITS))
+    u = _on(np.arange(1 << _INTER_BITS, dtype=_F32) * step, dev)
+    ux, uy = u[fx & mask][..., None], u[fy & mask][..., None]
+    flat = x.reshape(h * w, -1)
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+
+    def tap(yy, xx):
+        ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        v = flat[yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)]
+        return torch.where(ok[..., None], v, zero)
+
+    vy0, vx0 = 1.0 - uy, 1.0 - ux
+    out = (tap(iy, ix) * (vy0 * vx0) + tap(iy, ix + 1) * (vy0 * ux)
+           + tap(iy + 1, ix) * (uy * vx0) + tap(iy + 1, ix + 1) * (uy * ux))
+    return out.reshape(x.shape)
 
 
 # --- lane clipping (host) ---------------------------------------------------
@@ -468,20 +608,31 @@ class TrainAugment:
         array, read on the CPU). Returns ``(img, lanes)`` or, when ``ids``
         is given, ``(img, lanes, ids)`` with the ids of dropped lanes
         removed in step; ``img`` uint8 [img_h, img_w, 3] on the input's
-        device. Every probability is drawn, 0 or not, in the JAX class's
-        order."""
-        if seg is not None or flow is not None:
-            raise NotImplementedError(
-                "TrainAugment: the segmentation and flow planes are not "
-                "ported yet")
+        device. ``seg`` (an integer mask [H, W]) and ``flow`` (float32
+        [H, W, 2]), where given, ride the geometric steps (the module
+        docstring) and are appended to the tuple, on the image's device.
+        Every probability is drawn, 0 or not, in the JAX class's order."""
         rng = self.rng
-        img, lanes = resize_with_lanes(_as_image(img), lanes, self.img_h,
-                                       self.img_w)
+        img = _as_image(img)
+        dev = img.device
+        if seg is not None:
+            seg = torch.as_tensor(seg).to(dev)
+        if flow is not None:
+            flow = torch.as_tensor(flow).to(dev, torch.float32)
+        img, lanes = resize_with_lanes(img, lanes, self.img_h, self.img_w)
         h, w = img.shape[:2]
+        if seg is not None:
+            seg = resize_nearest(seg, h, w)
+        if flow is not None:
+            flow = resize_linear_f32(flow, h, w)
 
         if rng.random() < self.p_hflip:
             img = img.flip(1)
             lanes = [np.stack([w - 1 - l[:, 0], l[:, 1]], 1) for l in lanes]
+            if seg is not None:
+                seg = seg.flip(1)
+            if flow is not None:
+                flow = flow.flip(1)
 
         if rng.random() < self.p_channel_shuffle:
             img = img[..., _on(rng.permutation(3), img.device)]
@@ -510,6 +661,10 @@ class TrainAugment:
             m = rotation_matrix((w / 2, h / 2), ang, sc)
             m[:, 2] += (tx, ty)
             img = warp_affine(img, m)
+            if seg is not None:
+                seg = warp_affine_nearest(seg, m)
+            if flow is not None:
+                flow = warp_affine_f32(flow, m)
             new_lanes = []
             for l in lanes:
                 ones = np.ones((len(l), 1), np.float32)
@@ -518,6 +673,11 @@ class TrainAugment:
             lanes = new_lanes
 
         lanes, kept_ids = _clip_lanes(lanes, h, w, ids)
+        out = (img, lanes)
         if ids is not None:
-            return img, lanes, kept_ids
-        return img, lanes
+            out = out + (kept_ids,)
+        if seg is not None:
+            out = out + (seg,)
+        if flow is not None:
+            out = out + (flow,)
+        return out

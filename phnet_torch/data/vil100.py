@@ -6,7 +6,9 @@ reference's on-disk schema (``libs/dataset/dataV3.py:64-205``):
   <root>/VIL100/
     data/db_info.yaml            sequences: [{name, set: train|test}, ...]
     JPEGImages/<vid>/<frame>.jpg
+    Annotations/<vid>/<frame>.png   (segmentation masks, lane ids)
     Json/<vid>/<frame>.jpg.json  {annotations: {lane: [{lane_id, points}]}}
+    Flow/<vid>/<frame>{u,v}.jpg  (quantized Farneback flow, optional)
 
 Test mode: a clip is a whole test video: its frames cropped by the top
 ``cut_scale`` of the image, resized to the model's frame and normalized;
@@ -29,11 +31,22 @@ decoded whole to uint8 (``ClipDecoder.u8``), cropped, put through
 tries while the label encoding raises) and normalized, all on the
 reader's device; without ``augment`` the clip takes test mode's path.
 
+The segmentation and flow planes (``load_seg``, ``load_flow``, both
+modes): the mask PNG read by the port's codec (``data/png.py``: a palette
+mask reads to its indices, where the JAX reader's OpenCV reads the
+palette colours' luma; a gray mask to its bytes as there), the u / v
+flow JPEGs decoded to gray (libjpeg on the CPU, nvJPEG's Y plane on the
+card) and dequantized with the JPEGs' own size (``dataV3.py:168-176``),
+both cropped by the cut; then through ``augment`` beside the frame, or in
+test mode resized to the model's frame (the mask with ``INTER_NEAREST``,
+the flow with the float ``INTER_LINEAR``). A frame whose flow JPEGs are
+missing gets zero flow and stays aligned with its image; a file that is
+there and does not decode raises. ``seg`` comes back as uint8 [T, H, W]
+and ``flow`` as float32 [T, H, W, 2], on the reader's device.
+
 ``db_info.yaml`` is read by :func:`read_sequences`, not by a YAML
 library. The reader runs on the card unless it is given ``device="cpu"``.
 The frame size, the cut and the label rows are the model configuration's.
-The segmentation and flow planes (``load_seg``, ``load_flow``) are not
-ported yet.
 """
 
 from __future__ import annotations
@@ -48,9 +61,12 @@ import torch
 
 from ..config import ModelConfig
 from ..geometry import encode_lane_label
+from .flow import dequantize_flow
 from .native_loader import ClipDecoder, jpeg_dims
+from .png import read_mask
 from .sampling import FrameSampling
-from .transforms import TrainAugment, normalize, scale_lanes
+from .transforms import (TrainAugment, normalize, resize_linear_f32,
+                         resize_nearest, scale_lanes)
 
 _KEY = re.compile(r"^([A-Za-z_][\w-]*)\s*:(?:\s+(.*))?$")
 
@@ -151,21 +167,26 @@ class VIL100Dataset(FrameSampling):
     ``train=True`` its train videos, read for a model of configuration
     ``cfg`` (its ``img_h``, ``img_w``, ``cut_scale``, ``max_lanes`` and
     lane spec). ``device``: where frames are decoded and returned as a
-    float32 tensor (None: the card). The training arguments are the JAX
-    reader's."""
+    float32 tensor (None: the card). The training arguments and
+    ``load_seg`` / ``load_flow`` are the JAX reader's."""
 
     MAX_TRAINING_SKIP = 100
 
     def __init__(self, root: str, cfg: ModelConfig, train: bool = False,
                  device=None, sampled_frames: int = 16, max_skip: int = 5,
                  skip_increment: int = 5, samples_per_video: int = 2,
-                 augment: Optional[TrainAugment] = None, seed: int = 3407):
+                 augment: Optional[TrainAugment] = None, seed: int = 3407,
+                 load_seg: bool = False, load_flow: bool = False):
         self.cfg = cfg
         self.train = train
         self.decode = ClipDecoder(device)
         root = os.path.join(root, "VIL100")
         self.imgdir = os.path.join(root, "JPEGImages")
         self.jsondir = os.path.join(root, "Json")
+        self.annodir = os.path.join(root, "Annotations")
+        self.flowdir = os.path.join(root, "Flow")
+        self.load_seg = load_seg
+        self.load_flow = load_flow
         db = read_sequences(os.path.join(root, "data", "db_info.yaml"))
         target = "train" if train else "test"
         self.videos = [s["name"] for s in db if s["set"] == target]
@@ -203,6 +224,23 @@ class VIL100Dataset(FrameSampling):
             [list(map(tuple, p[np.argsort(-p[:, 1])])) for p in lanes],
             ids, c.lane, c.img_h, c.img_w, c.max_lanes)
 
+    def _planes(self, vid: str, name: str, cut: int):
+        """A frame's mask (uint8 [H - cut, W]) and flow (float32 [H - cut,
+        W, 2], None where its JPEGs are missing), each None unless
+        loaded, on the reader's device."""
+        dev = self.decode.device
+        seg = flow = None
+        if self.load_seg:
+            mask = read_mask(os.path.join(self.annodir, vid, name + ".png"))
+            seg = torch.from_numpy(mask[cut:]).to(dev)
+        if self.load_flow:
+            uv = [os.path.join(self.flowdir, vid, name + s + ".jpg")
+                  for s in ("u", "v")]
+            if all(os.path.exists(p) for p in uv):
+                u, v = self.decode.gray(uv)
+                flow = dequantize_flow(u, v, *u.shape[:2])[cut:]
+        return seg, flow
+
     def __getitem__(self, idx: int) -> Dict:
         vid = self.videos[idx // self.samples_per_video]
         jsonfolder = os.path.join(self.jsondir, vid)
@@ -215,20 +253,31 @@ class VIL100Dataset(FrameSampling):
         augment = self.augment if self.train else None
         frames_u8 = self.decode.u8(paths) if augment else None
         imgs, labels, points, image_points = [], [], [], []
+        segs, flows = [], []
         for i, name in enumerate(frames):
             lanes0, ids0, image = self._lanes(
                 os.path.join(jsonfolder, name + ".jpg.json"), cut)
+            seg0, flow0 = self._planes(vid, name, cut)
+            seg = flow = None
             if augment is None:
                 lanes, ids = scale_lanes(lanes0, ori_h - cut, ori_w, c.img_h,
                                          c.img_w), ids0
                 labels.append(self._label(lanes, ids))
+                if seg0 is not None:
+                    seg = resize_nearest(seg0, c.img_h, c.img_w)
+                if flow0 is not None:
+                    flow = resize_linear_f32(flow0, c.img_h, c.img_w)
             else:
                 # the JAX reader's 30 tries (transformV4.py:241-259): each
                 # draws anew from the augmentation's generator
                 for attempt in range(30):
                     try:
-                        img, lanes, ids = augment(frames_u8[i, cut:], lanes0,
-                                                  ids0)
+                        res = augment(frames_u8[i, cut:], lanes0, ids0,
+                                      seg=seg0, flow=flow0)
+                        img, lanes, ids = res[:3]
+                        rest = list(res[3:])
+                        seg = rest.pop(0) if seg0 is not None else None
+                        flow = rest.pop(0) if flow0 is not None else None
                         labels.append(self._label(lanes, ids))
                         break
                     except Exception:
@@ -237,10 +286,22 @@ class VIL100Dataset(FrameSampling):
                 imgs.append(normalize(img))
             points.append(lanes)
             image_points.append(image)
+            if self.load_seg:
+                segs.append(seg)
+            if self.load_flow:
+                # a frame without flow JPEGs keeps its row: zero flow
+                flows.append(flow if flow is not None else torch.zeros(
+                    (c.img_h, c.img_w, 2), dtype=torch.float32,
+                    device=self.decode.device))
         if augment is None:
             out = self.decode(paths, cut, c.img_h, c.img_w)
         else:
             out = torch.stack(imgs)
-        return {"name": vid, "frames": out, "labels": np.stack(labels),
+        clip = {"name": vid, "frames": out, "labels": np.stack(labels),
                 "points": points, "image_points": image_points,
                 "size": (ori_h, ori_w), "cut": cut, "frame_names": frames}
+        if segs:
+            clip["seg"] = torch.stack(segs)
+        if flows:
+            clip["flow"] = torch.stack(flows)
+        return clip

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface and loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds). The host C++ libraries of
-the evaluation path (:data:`HOST_SOURCES`: the libjpeg clip decoder, the
-nvJPEG decoder of the card, the CULane evaluator) are compiled the same
+the data and evaluation paths (:data:`HOST_SOURCES`: the libjpeg clip
+decoder and gray JPEG encoder, the nvJPEG decoder and encoder of the card,
+the CULane evaluator, the PNG codec's scanline unfilter) are compiled the same
 way by ``g++``, with the JAX package's Makefile flags. Libraries go to
 ``phnet_torch/build/`` (created at first use, ignored by git) under a
 name that carries a hash of the source, so an edited source is rebuilt
@@ -35,7 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HOST_SOURCES = {"clip_loader": ("data/native/clip_loader.cpp", ["-ljpeg"]),
                 "nvjpeg_decode": ("data/native/nvjpeg_decode.cpp",
                                   ["-lnvjpeg"]),
-                "culane_eval": ("evaluation/native/culane_eval.cpp", [])}
+                "culane_eval": ("evaluation/native/culane_eval.cpp", []),
+                "png_unfilter": ("data/native/png_unfilter.cpp", [])}
 GXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-fopenmp",
              "-Wall", "-shared"]
 

@@ -223,7 +223,9 @@ def test_whole_pipeline_equals_jax(ol):
 def test_ids_drop_with_their_lanes_and_planes_refuse():
     """A lane clipped out mid-list drops its own id, not the tail's
     (``tests/test_data.py``'s case on the port); without ids the pair
-    comes back; the segmentation and flow planes are not ported."""
+    comes back; a segmentation plane is appended to it (the planes were
+    refused until they were ported; ``tests/test_torch_planes.py`` holds
+    them to the JAX class)."""
     aug = T.TrainAugment(H, W, rng=np.random.default_rng(0), p_hflip=0,
                          p_channel_shuffle=0, p_brightness=0, p_hue_sat=0,
                          p_blur=0, p_affine=0)
@@ -235,8 +237,9 @@ def test_ids_drop_with_their_lanes_and_planes_refuse():
     assert ids == [7, 9] and len(lanes) == 2 and out.dtype == torch.uint8
     np.testing.assert_allclose(lanes[1][:, 0], [150.0, 140.0])
     assert len(aug(img, [good, outside, good2])) == 2
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        aug(img, [good], seg=np.zeros((H, W), np.uint8))
+    got = aug(img, [good], seg=np.ones((H, W), np.uint8))
+    assert len(got) == 3 and torch.equal(got[2], torch.ones(
+        (H, W), dtype=torch.uint8))
     with pytest.raises(ValueError, match="uint8"):
         aug(img.float(), [good])
 
